@@ -1,0 +1,68 @@
+"""Tile plumbing shared by the tile-skipping kernels: row padding, dense
+dim-tiles with a zero sentinel tile, and the per-(R block, S block)
+active tile lists."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.sparse.format import SparseBatch
+
+
+def _pad_rows(x: torch.Tensor, block: int) -> torch.Tensor:
+    n = x.shape[1]
+    target = -(-n // block) * block
+    if target == n:
+        return x
+    pad = torch.zeros((x.shape[0], target - n, x.shape[2]), dtype=x.dtype, device=x.device)
+    return torch.cat([x, pad], dim=1)
+
+
+def dense_tiles_with_sentinel(batch: SparseBatch, tile: int) -> torch.Tensor:
+    """(T+1, N, tile) — dense dim-tiles plus a trailing zero sentinel tile."""
+    from repro_torch.core.index import dense_r_tiles
+
+    t = dense_r_tiles(batch, tile)                 # (T, N, tile)
+    return torch.cat([t, torch.zeros((1,) + t.shape[1:], dtype=t.dtype, device=t.device)])
+
+
+def active_lists(
+    r_occ: np.ndarray,  # (NR, T) bool occupancy
+    s_occ: np.ndarray,  # (NS, T)
+    block_r: int,
+    block_s: int,
+    bucket: int = 8,
+) -> np.ndarray:
+    """(nR, nS, A) int32 — tiles occupied by BOTH blocks, sentinel-padded.
+
+    Host-side: the list lengths are data-dependent (this is the point — the
+    kernel's work is proportional to them), so they are materialized
+    concretely and bucketed to bound recompilation.
+
+    Fully vectorized: one block-level any-reduce per side, one broadcast
+    intersection, and a stable argsort to pack the occupied tile ids to the
+    front of each list (ascending, exactly the nonzero order).  The former
+    pure-Python O(nR·nS·T) nested loop dominated setup for large block
+    grids.
+    """
+    t_total = r_occ.shape[1]
+
+    def block_any(occ: np.ndarray, block: int) -> np.ndarray:
+        n_blocks = -(-occ.shape[0] // block)
+        padded = np.zeros((n_blocks * block, t_total), dtype=bool)
+        padded[: occ.shape[0]] = occ
+        return padded.reshape(n_blocks, block, t_total).any(axis=1)
+
+    r_any = block_any(r_occ, block_r)                       # (nR, T)
+    s_any = block_any(s_occ, block_s)                       # (nS, T)
+    both = r_any[:, None, :] & s_any[None, :, :]            # (nR, nS, T)
+    counts = both.sum(axis=-1)                              # (nR, nS)
+    a_len = -(-max(int(counts.max(initial=1)), 1) // bucket) * bucket
+    # stable argsort on ~both packs occupied tiles first, ascending tile id
+    packed = np.argsort(~both, axis=-1, kind="stable").astype(np.int32)
+    slot = np.arange(t_total, dtype=np.int32)
+    packed = np.where(slot[None, None, :] < counts[..., None], packed, t_total)
+    out = np.full((both.shape[0], both.shape[1], a_len), t_total, dtype=np.int32)
+    w = min(a_len, t_total)
+    out[:, :, :w] = packed[:, :, :w]
+    return out
