@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.core.index import active_tile_list
 from repro_torch.core.topk import TopKState, init_topk, min_prune_score
+from repro_torch.device import resolve_device
 from repro_torch.kernels.knn_score.ops import _pad_rows, active_lists, dense_tiles_with_sentinel
 from repro_torch.kernels.knn_topk.kernel import knn_topk_fused
 from repro_torch.kernels.knn_topk.ops import knn_topk, pad_state
@@ -168,16 +169,6 @@ class JoinResult:
         return TopKState(scores=self.scores, ids=self.ids)
 
 
-def _resolve_device(device) -> torch.device:
-    """The compute device: CUDA unless the caller names another.  Raises
-    when CUDA is asked for and there is none — nothing falls back."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' to run "
-                           "the kernels' plain versions on the CPU")
-    return dev
-
-
 # ---------------------------------------------------------------------------
 # block plumbing (host-side)
 # ---------------------------------------------------------------------------
@@ -254,7 +245,7 @@ class SparseKNNIndex:
             raise _not_ported("accuracy='approx'", _QUEUE_LSH)
         if spec.warm_start > 0:
             raise _not_ported("warm_start", _QUEUE_ENGINE)
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.spec = spec
         self._cache_device = cache_device_blocks
         self.dim = S.dim
@@ -465,6 +456,7 @@ class SparseKNNIndex:
             state = knn_topk(
                 br, bs, state=state, s_offset=blk.start, s_valid=blk.valid,
                 tile=self.tile, block_r=min(256, rb), block_s=min(256, sb),
+                device=self.device,
             )
             stats.tiles_scored += int(tiles.shape[0])
             stats.device_dispatches += 1

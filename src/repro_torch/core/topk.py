@@ -8,7 +8,8 @@ k candidates have been seen) and ``min_prune_score`` its min over a block
 Tie order is part of the contract: the earliest-offered candidate wins.
 ``topk_update`` therefore merges with a *stable* descending sort of
 ``[state, candidates]`` and keeps the first k — ``torch.topk`` promises no
-order among equal scores.
+order among equal scores.  ``merge_topk_states`` merges two states with
+the same tie order, through the topk_merge kernel on CUDA.
 """
 from __future__ import annotations
 
@@ -16,6 +17,10 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels.topk_merge.kernel import topk_merge_cuda
+from repro_torch.kernels.topk_merge.ref import topk_merge_plain
 
 NEG_INF = float("-inf")
 
@@ -30,7 +35,9 @@ class TopKState:
         return self.scores.shape[1]
 
 
-def init_topk(num_vectors: int, k: int, device="cpu") -> TopKState:
+def init_topk(num_vectors: int, k: int, device=None) -> TopKState:
+    """An empty (-inf, -1) state on ``device`` (CUDA unless named)."""
+    device = resolve_device(device)
     return TopKState(
         scores=torch.full((num_vectors, k), NEG_INF, dtype=torch.float32, device=device),
         ids=torch.full((num_vectors, k), -1, dtype=torch.int32, device=device),
@@ -43,17 +50,18 @@ def topk_update(state: TopKState, new_scores: torch.Tensor, new_ids: torch.Tenso
     ``new_ids`` is (M,) (shared columns) or (N, M).  Invalid candidates
     must carry score -inf.
     """
-    n, m = new_scores.shape
-    if new_ids.dim() == 1:
-        new_ids = new_ids[None, :].expand(n, m)
-    all_scores = torch.cat([state.scores, new_scores.float()], dim=1)
-    all_ids = torch.cat([state.ids, new_ids.to(torch.int32)], dim=1)
-    top_scores, pos = torch.sort(all_scores, dim=1, descending=True, stable=True)
-    k = state.k
-    return TopKState(
-        scores=top_scores[:, :k].contiguous(),
-        ids=torch.gather(all_ids, 1, pos[:, :k]),
-    )
+    return TopKState(*topk_merge_plain(state.scores, state.ids, new_scores, new_ids))
+
+
+def merge_topk_states(a: TopKState, b: TopKState) -> TopKState:
+    """Merge two per-row top-k states; ties favour ``a`` (the lower shard).
+
+    ``b``'s k entries are inserted into ``a`` in order, as the topk_merge
+    insertion body does, through ``topk_merge_cuda`` (M = k): the kernel on
+    CUDA states, its plain version on CPU states.  Bit-identical to the JAX
+    package's ``merge_topk_states``.
+    """
+    return TopKState(*topk_merge_cuda(a.scores, a.ids, b.scores, b.ids))
 
 
 def pad_topk_state(state: TopKState, n_pad: int) -> TopKState:

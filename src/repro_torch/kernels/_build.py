@@ -1,0 +1,115 @@
+"""Build the port's CUDA kernels, load them with ``ctypes``, launch them.
+
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface, ``build/kernels/<name>_<hash>.so``
+at the repository root.  All sources are compiled together, in parallel,
+at the first use of any kernel, and again whenever a file under ``csrc/``
+changes: the hash covers every file there, headers included.  Each
+library exports ``<name>_launch(..., stream)``, which returns a CUDA error
+code, and ``<name>_error_string(code)``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    path = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: the port's kernels need the CUDA toolkit")
+    return str(path)
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for f in sorted(CSRC.iterdir()):
+        if f.is_file():
+            h.update(f.name.encode() + b"\0" + f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> dict[str, tuple[pathlib.Path, str]]:
+    """Compile every source whose library for this ``csrc/`` hash is missing.
+
+    Returns {kernel name: (library path, compiler log)}; a log is empty
+    when that library was already built.  Raises if any compile fails."""
+    digest = _digest()
+    out, running = {}, []
+    for src in sorted(CSRC.glob("*.cu")):
+        lib = BUILD_DIR / f"{src.stem}_{digest}.so"
+        if lib.exists():
+            out[src.stem] = (lib, "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((src, lib, tmp, proc))
+    failed = []
+    for src, lib, tmp, proc in running:
+        log, _ = proc.communicate()
+        if proc.returncode == 0:
+            os.replace(tmp, lib)
+            out[src.stem] = (lib, log)
+        else:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed on {src.name}:\n{log}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str, argtypes: tuple) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if need be;
+    ``argtypes`` types its launch function, the stream argument excluded."""
+    lib = ctypes.CDLL(str(build()[name][0]))
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return lib
+
+
+def launch(name: str, argtypes: tuple, device: torch.device, *args) -> None:
+    """Launch ``<name>_launch(*args)`` on ``device``'s current stream; raise
+    if the launch is refused.  Does not synchronise."""
+    lib = load(name, argtypes)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, f"{name}_launch")(*args, stream)
+    if err != 0:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} launch failed: {msg}")
+
+
+def check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple, device) -> None:
+    """Raise unless ``x`` is a contiguous ``dtype`` tensor of ``shape`` on ``device``."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -29,7 +29,8 @@
 //   * The (block_r, k) state (256 KB at k = 128) lives in the output buffers
 //     in device memory (L2-resident).  A warp owns one row at a time during
 //     insertion and holds its state in registers, k/32 slots a lane: pos
-//     by __ballot_sync + __popc, the shift by __shfl_up_sync.
+//     by __ballot_sync + __popc, the shift by __shfl_up_sync (the body is
+//     topk_insert.cuh, shared with topk_merge.cu).
 //   * The TPU grid is sequential; here one CTA per R-row group walks the S
 //     blocks in a loop and nothing carries between CTAs.  The threshold is
 //     a CTA-wide min through shared memory, so a CTA owns exactly one
@@ -51,6 +52,8 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "topk_insert.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;            // 8 warps, a 16 x 16 thread grid
@@ -62,7 +65,6 @@ constexpr int kPad = kDepth + 1;         // row pitch of the staged tiles
 constexpr int kScPad = kChunk + 1;       // row pitch of the staged scores
 constexpr int kRowsPerThread = kMaxRows / 16;
 constexpr int kColsPerThread = kChunk / 16;
-constexpr unsigned kFull = 0xffffffffu;
 
 struct Params {
   const float* r_tiles;  // (T+1, NR, tile)
@@ -80,15 +82,6 @@ struct Params {
   int t1, n_r, n_s, tile, n_sb, a_len, k, block_r, block_s;
 };
 
-template <int KS>
-__device__ __forceinline__ float slot_value(const float (&s)[KS], int q, int lane) {
-  float v = s[0];
-#pragma unroll
-  for (int j = 1; j < KS; ++j)
-    if (j == q) v = s[j];
-  return __shfl_sync(kFull, v, lane);
-}
-
 // Insert one row's offered chunk columns into its k-state, in column order.
 // Called by a whole warp; every branch is warp-uniform.  Returns whether
 // any candidate of the row was offered.
@@ -104,8 +97,7 @@ __device__ bool insert_row(float* row_s, int* row_i, int k, const float* sc_row,
     s[q] = p < k ? row_s[p] : -INFINITY;
     id[q] = p < k ? row_i[p] : -1;
   }
-  const int kq = (k - 1) >> 5, kl = (k - 1) & 31;
-  float kth = slot_value<KS>(s, kq, kl);
+  float kth = topk::kth<KS>(s, k);
   bool offered = false, changed = false;
   for (int c = 0; c < ncol; ++c) {
     const float v = sc_row[c];
@@ -113,34 +105,8 @@ __device__ bool insert_row(float* row_s, int* row_i, int k, const float* sc_row,
     offered = true;
     if (!(v > kth)) continue;  // pos would be k: the state stays as it is
     changed = true;
-    int pos = 0;
-#pragma unroll
-    for (int q = 0; q < KS; ++q)
-      pos += __popc(__ballot_sync(kFull, q * 32 + lane < k && s[q] >= v));
-    const int cid = col_id[c];
-    float prev_s[KS];
-    int prev_i[KS];
-#pragma unroll
-    for (int q = 0; q < KS; ++q) {
-      const float up_s = __shfl_up_sync(kFull, s[q], 1);
-      const int up_i = __shfl_up_sync(kFull, id[q], 1);
-      const float wrap_s = __shfl_sync(kFull, s[q > 0 ? q - 1 : 0], 31);
-      const int wrap_i = __shfl_sync(kFull, id[q > 0 ? q - 1 : 0], 31);
-      prev_s[q] = lane > 0 ? up_s : wrap_s;
-      prev_i[q] = lane > 0 ? up_i : wrap_i;
-    }
-#pragma unroll
-    for (int q = 0; q < KS; ++q) {
-      const int p = q * 32 + lane;
-      if (p == pos) {
-        s[q] = v;
-        id[q] = cid;
-      } else if (p > pos) {
-        s[q] = prev_s[q];
-        id[q] = prev_i[q];
-      }
-    }
-    kth = slot_value<KS>(s, kq, kl);
+    topk::insert<KS>(s, id, k, v, col_id[c], lane);
+    kth = topk::kth<KS>(s, k);
   }
   if (changed) {
 #pragma unroll
@@ -257,7 +223,8 @@ __global__ void __launch_bounds__(kThreads, 1) knn_topk_kernel(Params p) {
       if (tid < p.block_r && row0 + tid < nrv)
         v = p.out_s[(size_t)(row0 + tid) * p.k + p.k - 1];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, off));
+      for (int off = 16; off > 0; off >>= 1)
+        v = fminf(v, __shfl_xor_sync(topk::kFullMask, v, off));
       if (lane == 0) warp_min[warp] = v;
       __syncthreads();
       if (tid == 0) {

@@ -1,12 +1,19 @@
-"""Tile plumbing shared by the tile-skipping kernels: row padding, dense
-dim-tiles with a zero sentinel tile, and the per-(R block, S block)
-active tile lists."""
+"""Public op: tile-skipping KNN scoring, with the tile plumbing shared by
+the tile-skipping kernels: row padding, dense dim-tiles with a zero
+sentinel tile, and the per-(R block, S block) active tile lists.
+
+``knn_score(r_block, s_block)`` densifies two SparseBatches into
+dim-tiles, derives the active tile lists from occupancy on the host, and
+runs the score kernel (``kernel.knn_score_cuda``) on the op's device.
+"""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.sparse.format import SparseBatch
+from repro_torch.device import resolve_device
+from repro_torch.kernels.knn_score.kernel import knn_score_cuda
+from repro_torch.sparse.format import SparseBatch, tile_occupancy
 
 
 def _pad_rows(x: torch.Tensor, block: int) -> torch.Tensor:
@@ -66,3 +73,26 @@ def active_lists(
     w = min(a_len, t_total)
     out[:, :, :w] = packed[:, :, :w]
     return out
+
+
+def knn_score(
+    r_block: SparseBatch,
+    s_block: SparseBatch,
+    tile: int = 128,
+    block_r: int = 256,
+    block_s: int = 256,
+    device=None,
+) -> torch.Tensor:
+    """(|Br|, |Bs|) exact dot-product scores via the tile-skipping kernel,
+    on ``device`` (CUDA unless named); the blocks are moved there."""
+    if r_block.dim != s_block.dim:
+        raise ValueError(f"dim mismatch: {r_block.dim} vs {s_block.dim}")
+    dev = resolve_device(device)
+    r_block, s_block = r_block.to(dev), s_block.to(dev)
+    r_tiles = _pad_rows(dense_tiles_with_sentinel(r_block, tile), block_r)
+    s_tiles = _pad_rows(dense_tiles_with_sentinel(s_block, tile), block_s)
+    r_occ = tile_occupancy(r_block, tile).cpu().numpy()
+    s_occ = tile_occupancy(s_block, tile).cpu().numpy()
+    active = torch.as_tensor(active_lists(r_occ, s_occ, block_r, block_s), device=dev)
+    out = knn_score_cuda(r_tiles, s_tiles, active, block_r=block_r, block_s=block_s)
+    return out[: r_block.num_vectors, : s_block.num_vectors]

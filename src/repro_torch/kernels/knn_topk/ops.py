@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.topk import TopKState, init_topk, min_prune_score, pad_topk_state
+from repro_torch.device import resolve_device
 from repro_torch.kernels.knn_score.ops import _pad_rows, active_lists, dense_tiles_with_sentinel
 from repro_torch.kernels.knn_topk.kernel import knn_topk_fused
 from repro_torch.sparse.format import SparseBatch, tile_occupancy
@@ -28,9 +29,11 @@ def pad_state(state: TopKState, n_pad: int) -> Tuple[torch.Tensor, torch.Tensor]
 
 def column_meta(
     n_valid: int, n_pad: int, s_offset: int = 0, s_valid: Optional[np.ndarray] = None,
-    device="cpu",
+    device=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """((1, n_pad) valid int32, (1, n_pad) global-id int32) column metadata."""
+    """((1, n_pad) valid int32, (1, n_pad) global-id int32) column metadata,
+    on ``device`` (CUDA unless named)."""
+    device = resolve_device(device)
     valid = np.zeros(n_pad, np.int32)
     if s_valid is None:
         valid[:n_valid] = 1
@@ -52,19 +55,24 @@ def knn_topk(
     tile: int = 128,
     block_r: int = 256,
     block_s: int = 256,
+    device=None,
 ) -> TopKState:
-    """Merge B_s's candidates into ``state`` (or a fresh k-state) on the
-    blocks' device.  The carried state's MinPruneScore seeds the kernel's
+    """Merge B_s's candidates into ``state`` (or a fresh k-state) on
+    ``device`` (CUDA unless named); the blocks and the state are moved
+    there.  The carried state's MinPruneScore seeds the kernel's
     threshold, so a chained stream of S blocks prunes later blocks with the
     earlier blocks' results."""
     if r_block.dim != s_block.dim:
         raise ValueError(f"dim mismatch: {r_block.dim} vs {s_block.dim}")
-    dev = r_block.device
+    dev = resolve_device(device)
+    r_block, s_block = r_block.to(dev), s_block.to(dev)
     n_r, n_s = r_block.num_vectors, s_block.num_vectors
     if state is None:
         if k is None:
             raise ValueError("pass k or an initial state")
         state = init_topk(n_r, k, device=dev)
+    else:
+        state = TopKState(state.scores.to(dev), state.ids.to(dev))
 
     thr = min_prune_score(state).reshape(1, 1)   # lower-bounds every row's k-th
     r_tiles = _pad_rows(dense_tiles_with_sentinel(r_block, tile), block_r)

@@ -1,5 +1,5 @@
-"""Plain version of the top-k insertion merge (the paper's candidate-set
-insert), the body of the fused knn_topk kernel's epilogue.
+"""Streaming top-k merge (the paper's candidate-set insert): the plain
+insertion body and the CUDA kernel's wrapper.
 
 M insertion passes of (N, M) candidates into an (N, k) descending state:
 
@@ -8,12 +8,26 @@ M insertion passes of (N, M) candidates into an (N, k) descending state:
             = cand        j == pos
             = state[j-1]  j > pos
 
-The CUDA kernel (kernels/csrc/knn_topk.cu) runs this per row in a warp;
-the tests hold this version bit for bit against the JAX package's.
+``insert_candidates`` is the plain form of that body, bit for bit the JAX
+package's; tests hold the kernel and ``ref.topk_merge_plain`` against it.
+``topk_merge_cuda`` launches the hand-written kernel of
+``../csrc/topk_merge.cu`` (one warp a row, the body of
+``../csrc/topk_insert.cuh``, shared with the fused knn_topk kernel) on
+CUDA tensors, and runs ``ref.topk_merge_plain`` on CPU tensors.  Nothing
+falls back: a CUDA tensor that the kernel cannot take raises.
+``topk_merge_cuda.launches`` counts the kernel's launches.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from repro_torch.kernels._build import check, launch
+from repro_torch.kernels.topk_merge.ref import topk_merge_plain
+
+MAX_K = 128
+_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 4
 
 
 def insert_candidates(state_scores, state_ids, cand_scores, cand_ids):
@@ -30,3 +44,42 @@ def insert_candidates(state_scores, state_ids, cand_scores, cand_ids):
         scores = torch.where(lane < pos, scores, torch.where(lane == pos, cand, sh_s))
         ids = torch.where(lane < pos, ids, torch.where(lane == pos, cid, sh_i))
     return scores, ids
+
+
+def topk_merge_cuda(
+    state_scores: torch.Tensor,  # (N, k) f32, descending; -inf for empty slots
+    state_ids: torch.Tensor,     # (N, k) int32; -1 for empty slots
+    cand_scores: torch.Tensor,   # (N, M) f32; -inf for no candidate
+    cand_ids: torch.Tensor,      # (N, M) int32, or (M,) shared by every row
+):
+    """((N, k) scores, (N, k) ids): the state with the candidates merged in."""
+    if state_scores.device.type == "cpu":
+        return topk_merge_plain(state_scores, state_ids, cand_scores, cand_ids)
+    if state_scores.device.type != "cuda":
+        raise ValueError(f"topk_merge_cuda runs on cuda or cpu tensors, got {state_scores.device}")
+    dev = state_scores.device
+    if state_scores.dim() != 2 or cand_scores.dim() != 2:
+        raise ValueError("state_scores and cand_scores must be 2-d")
+    n, k = state_scores.shape
+    m = cand_scores.shape[1]
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k must be in [1, {MAX_K}], got {k}")
+    check("state_scores", state_scores, torch.float32, (n, k), dev)
+    check("state_ids", state_ids, torch.int32, (n, k), dev)
+    check("cand_scores", cand_scores, torch.float32, (n, m), dev)
+    shared = cand_ids.dim() == 1
+    check("cand_ids", cand_ids, torch.int32, (m,) if shared else (n, m), dev)
+
+    out_s = torch.empty((n, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((n, k), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out_s, out_i
+    launch("topk_merge", _ARGTYPES, dev,
+           state_scores.data_ptr(), state_ids.data_ptr(), cand_scores.data_ptr(),
+           cand_ids.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+           n, k, m, 0 if shared else m)
+    topk_merge_cuda.launches += 1
+    return out_s, out_i
+
+
+topk_merge_cuda.launches = 0

@@ -94,6 +94,27 @@ def from_arrays(indices, values, nnz, dim: int, device="cpu") -> SparseBatch:
     )
 
 
+def densify(batch: SparseBatch) -> torch.Tensor:
+    """(N, D) dense view, on the batch's device.  Scatter-add with a
+    discard column for padding."""
+    n = batch.num_vectors
+    out = torch.zeros((n, batch.dim + 1), dtype=batch.values.dtype, device=batch.device)
+    out.scatter_add_(1, batch.indices.long(), batch.values)
+    return out[:, : batch.dim]
+
+
+def densify_tile(batch: SparseBatch, tile_start: int, tile: int = DEFAULT_TILE) -> torch.Tensor:
+    """(N, tile) dense view of one dim-tile ``[tile_start, tile_start + tile)``."""
+    rel = batch.indices.long() - tile_start
+    in_tile = (rel >= 0) & (rel < tile)
+    rel = torch.where(in_tile, rel, tile)  # discard slot
+    vals = torch.where(in_tile, batch.values, 0.0)
+    out = torch.zeros((batch.num_vectors, tile + 1), dtype=batch.values.dtype,
+                      device=batch.device)
+    out.scatter_add_(1, rel, vals)
+    return out[:, :tile]
+
+
 def num_tiles(dim: int, tile: int = DEFAULT_TILE) -> int:
     return -(-dim // tile)
 

@@ -1,6 +1,7 @@
-"""The port's CUDA kernel on the card: knn_topk_fused against its plain
-version, and the fused-kernel join path in both modes.  Every test here
-needs a CUDA device and skips without one.  The file imports neither jax
+"""The port's CUDA kernels on the card: knn_topk_fused, knn_score_cuda and
+topk_merge_cuda against their plain versions, merge_topk_states, the
+wrappers' input checks, and the fused-kernel join path in both modes.
+Every test here needs a CUDA device and skips without one.  The file imports neither jax
 nor repro, so it runs on a machine with the card alone:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -12,15 +13,20 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.blocknl import knn_join  # noqa: E402
 from repro_torch.core.engine import JoinSpec, SparseKNNIndex  # noqa: E402
-from repro_torch.core.topk import init_topk, min_prune_score  # noqa: E402
+from repro_torch.core.topk import TopKState, init_topk, merge_topk_states, min_prune_score  # noqa: E402,E501
+from repro_torch.kernels.knn_score.kernel import knn_score_cuda  # noqa: E402
 from repro_torch.kernels.knn_score.ops import (  # noqa: E402
     _pad_rows,
     active_lists,
     dense_tiles_with_sentinel,
+    knn_score,
 )
+from repro_torch.kernels.knn_score.ref import knn_score_plain  # noqa: E402
 from repro_torch.kernels.knn_topk.kernel import knn_topk_fused  # noqa: E402
 from repro_torch.kernels.knn_topk.ops import column_meta, pad_state  # noqa: E402
 from repro_torch.kernels.knn_topk.ref import knn_topk_plain  # noqa: E402
+from repro_torch.kernels.topk_merge.kernel import insert_candidates, topk_merge_cuda  # noqa: E402
+from repro_torch.kernels.topk_merge.ref import topk_merge_plain  # noqa: E402
 from repro_torch.sparse.datagen import synthetic_sparse  # noqa: E402
 from repro_torch.sparse.format import tile_occupancy  # noqa: E402
 from repro_torch.testing import assert_topk_close  # noqa: E402
@@ -32,7 +38,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the knn_topk kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the port's CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -98,3 +104,106 @@ def test_join_modes_on_card_match_cpu(cuda):
     for got in (res.state, out):
         assert_topk_close(got.scores.cpu().numpy(), got.ids.cpu().numpy(),
                           cpu.scores.numpy(), cpu.ids.numpy(), RTOL, ATOL)
+
+
+def _score_inputs(dev, nr, ns, dim, tile, br, bs):
+    R = synthetic_sparse(nr, dim=dim, nnz_mean=15, nnz_std=4, seed=nr + ns).to(dev)
+    S = synthetic_sparse(ns, dim=dim, nnz_mean=15, nnz_std=4, seed=nr * ns).to(dev)
+    r_tiles = _pad_rows(dense_tiles_with_sentinel(R, tile), br)
+    s_tiles = _pad_rows(dense_tiles_with_sentinel(S, tile), bs)
+    active = torch.as_tensor(active_lists(tile_occupancy(R, tile).cpu().numpy(),
+                                          tile_occupancy(S, tile).cpu().numpy(), br, bs),
+                             device=dev)
+    return R, S, r_tiles, s_tiles, active
+
+
+@pytest.mark.parametrize("nr,ns,dim,tile,br,bs", [
+    (64, 64, 256, 128, 64, 64),
+    (70, 90, 640, 128, 64, 64),      # padding rows
+    (128, 64, 384, 128, 128, 32),    # uneven blocks
+    (32, 32, 512, 256, 32, 32),      # tile 256
+    (16, 200, 1024, 128, 16, 64),    # tall-thin
+    (200, 300, 1024, 128, 104, 24),  # block 104, ragged S
+    (300, 700, 2000, 128, 256, 256),
+])
+def test_knn_score_kernel_matches_plain(cuda, nr, ns, dim, tile, br, bs):
+    R, S, r_tiles, s_tiles, active = _score_inputs(cuda, nr, ns, dim, tile, br, bs)
+    before = knn_score_cuda.launches
+    got = knn_score_cuda(r_tiles, s_tiles, active, block_r=br, block_s=bs)
+    torch.cuda.synchronize()
+    assert knn_score_cuda.launches == before + 1
+    want = knn_score_plain(r_tiles, s_tiles, active, block_r=br, block_s=bs)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    op = knn_score(R, S, tile=tile, block_r=br, block_s=bs)   # the op runs on CUDA
+    assert op.device.type == "cuda" and knn_score_cuda.launches == before + 2
+    torch.testing.assert_close(op, want[:nr, :ns], rtol=RTOL, atol=ATOL)
+
+
+def _merge_inputs(dev, seed, n, k, m, shared_ids, ties=False):
+    g = torch.Generator().manual_seed(seed)
+    levels = torch.tensor([float("-inf"), 0.25, 0.5, 1.0])
+    ss = levels[torch.randint(0, 4, (n, k), generator=g)].sort(dim=1, descending=True).values
+    si = torch.where(torch.isfinite(ss), torch.randint(0, 1000, (n, k), generator=g), -1)
+    cs = torch.where(torch.rand((n, m), generator=g) < 0.5,
+                     levels[torch.randint(0, 4, (n, m), generator=g)],
+                     torch.rand((n, m), generator=g))
+    if ties:
+        cs = torch.full((n, m), 0.5)
+    ci = (torch.arange(m) if shared_ids else torch.randint(0, 10**6, (n, m), generator=g))
+    return [x.to(device=dev, dtype=torch.int32 if x.dtype == torch.int64 else x.dtype)
+            for x in (ss, si, cs, ci)]
+
+
+@pytest.mark.parametrize("n,k,m,shared_ids,ties", [
+    (64, 1, 64, False, False),
+    (100, 5, 300, True, False),      # M not a multiple of 32, shared ids
+    (33, 8, 64, False, True),        # all candidates equal: ties
+    (256, 16, 50, False, False),
+    (40, 128, 200, True, False),     # k = 128
+    (2048, 5, 10_240, True, False),  # the unfused path's shapes
+])
+def test_topk_merge_kernel_matches_plain(cuda, n, k, m, shared_ids, ties):
+    args = _merge_inputs(cuda, n + m, n, k, m, shared_ids, ties)
+    before = topk_merge_cuda.launches
+    got = topk_merge_cuda(*args)
+    torch.cuda.synchronize()
+    assert topk_merge_cuda.launches == before + 1
+    want = topk_merge_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_merge_topk_states_kernel_is_the_plain_body(cuda):
+    a = _merge_inputs(cuda, 1, 500, 5, 5, False)
+    b = _merge_inputs(cuda, 2, 500, 5, 5, False)
+    b[0][::3] = a[0][::3]   # rows tied between the shards
+    before = topk_merge_cuda.launches
+    got = merge_topk_states(TopKState(a[0], a[1]), TopKState(b[0], b[1]))
+    assert topk_merge_cuda.launches == before + 1
+    want = insert_candidates(a[0], a[1], b[0], b[1])
+    assert torch.equal(got.scores, want[0]) and torch.equal(got.ids, want[1])
+
+
+def test_score_and_merge_wrappers_reject_bad_inputs(cuda):
+    _, _, r_tiles, s_tiles, active = _score_inputs(cuda, 70, 90, 640, 128, 64, 64)
+    kw = dict(block_r=64, block_s=64)
+    with pytest.raises(ValueError):   # another device
+        knn_score_cuda(r_tiles, s_tiles.cpu(), active, **kw)
+    with pytest.raises(TypeError):    # dtype
+        knn_score_cuda(r_tiles, s_tiles, active.long(), **kw)
+    with pytest.raises(ValueError):   # shape: NR not a multiple of block_r
+        knn_score_cuda(r_tiles, s_tiles, active, block_r=48, block_s=64)
+    with pytest.raises(ValueError):   # contiguity
+        knn_score_cuda(r_tiles, s_tiles.transpose(1, 2).contiguous().transpose(1, 2),
+                       active, **kw)
+    ss, si, cs, ci = _merge_inputs(cuda, 0, 32, 5, 40, False)
+    with pytest.raises(ValueError):
+        topk_merge_cuda(ss, si, cs, ci.cpu())
+    with pytest.raises(TypeError):
+        topk_merge_cuda(ss, si.long(), cs, ci)
+    with pytest.raises(ValueError):
+        topk_merge_cuda(ss, si, cs[:, :39], ci)
+    with pytest.raises(ValueError):
+        topk_merge_cuda(ss, si, cs.t().contiguous().t(), ci)
+    big = torch.full((32, 129), float("-inf"), device=cuda)
+    with pytest.raises(ValueError, match="k must be"):
+        topk_merge_cuda(big, big.int(), cs, ci)

@@ -19,7 +19,11 @@ from repro_torch.core.engine import (  # noqa: E402
     SparseKNNIndex,
     plan,
 )
+from repro_torch.core.topk import init_topk  # noqa: E402
+from repro_torch.kernels.knn_score.ops import knn_score  # noqa: E402
 from repro_torch.kernels.knn_topk.kernel import knn_topk_fused  # noqa: E402
+from repro_torch.kernels.knn_topk.ops import column_meta, knn_topk  # noqa: E402
+from repro_torch.kernels.topk_merge.ops import topk_merge  # noqa: E402
 from repro_torch.sparse.format import from_arrays  # noqa: E402
 from repro_torch.testing import assert_topk_close  # noqa: E402
 
@@ -116,6 +120,30 @@ def test_entry_points_need_cuda_unless_cpu_is_named(rs, monkeypatch):
         SparseKNNIndex.build(pS, spec)
     with pytest.raises(RuntimeError, match="CUDA"):
         knn_join(pR, pS, 5, algorithm="iib", use_kernel=True)
+
+
+_S, _I = torch.zeros(4, 3), torch.full((4, 3), -1, dtype=torch.int32)
+OPS = {  # the public ops, each on small CPU inputs
+    "knn_score": lambda pR, pS, **kw: knn_score(pR, pS, block_r=16, block_s=32, **kw),
+    "knn_topk": lambda pR, pS, **kw: knn_topk(pR, pS, k=5, block_r=16, block_s=32, **kw),
+    "topk_merge": lambda pR, pS, **kw: topk_merge(_S, _I, torch.ones(4, 6),
+                                                  torch.arange(6), **kw),
+    "init_topk": lambda pR, pS, **kw: init_topk(4, 3, **kw),
+    "column_meta": lambda pR, pS, **kw: column_meta(5, 8, **kw),
+}
+
+
+@pytest.mark.parametrize("op", sorted(OPS))
+def test_ops_need_cuda_unless_cpu_is_named(rs, monkeypatch, op):
+    """Every public op runs on CUDA by default: without a card it raises,
+    even on CPU inputs, and runs on the CPU only when asked."""
+    _, _, pR, pS, _, _ = rs
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        OPS[op](pR, pS)
+    out = OPS[op](pR, pS, device="cpu")
+    out = (out.scores, out.ids) if hasattr(out, "scores") else out
+    assert {x.device.type for x in (out if isinstance(out, tuple) else (out,))} == {"cpu"}
 
 
 @pytest.mark.parametrize("kwargs,build_kwargs", [

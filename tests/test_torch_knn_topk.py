@@ -78,14 +78,14 @@ def test_topk_update_bit_identical(seed, shared_ids):
 
 
 def test_state_helpers():
-    st = init_topk(3, 4)
+    st = init_topk(3, 4, device="cpu")
     assert st.k == 4 and torch.isinf(st.scores).all() and (st.ids == -1).all()
     st = topk_update(st, torch.tensor([[0.5, 0.1], [0.2, 0.3], [0.9, 0.8]]),
                      torch.tensor([7, 8]))
     padded = pad_topk_state(st, 5)
     assert padded.scores.shape == (5, 4) and (padded.ids[3:] == -1).all()
     assert float(min_prune_score(st)) == float("-inf")
-    full = topk_update(init_topk(2, 1), torch.tensor([[0.5], [0.25]]), torch.tensor([1]))
+    full = topk_update(init_topk(2, 1, device="cpu"), torch.tensor([[0.5], [0.25]]), torch.tensor([1]))
     assert float(min_prune_score(full)) == 0.25
     assert float(min_prune_score(full, valid=torch.tensor([True, False]))) == 0.5
 
@@ -100,8 +100,9 @@ def _both_inputs(nr, ns, dim, br, bs, k, s_valid=None, seed_state=None, s_offset
     s_tiles = _pad_rows(dense_tiles_with_sentinel(S, 128), bs)
     active = torch.from_numpy(active_lists(tile_occupancy(R, 128).numpy(),
                                            tile_occupancy(S, 128).numpy(), br, bs))
-    valid, ids = column_meta(ns, s_tiles.shape[1], s_offset=s_offset, s_valid=s_valid)
-    state = seed_state if seed_state is not None else init_topk(nr, k)
+    valid, ids = column_meta(ns, s_tiles.shape[1], s_offset=s_offset, s_valid=s_valid,
+                             device="cpu")
+    state = seed_state if seed_state is not None else init_topk(nr, k, device="cpu")
     init_s, init_i = pad_state(state, r_tiles.shape[1])
     thr = min_prune_score(state).reshape(1, 1)
     nrv = torch.full((1,), nr, dtype=torch.int32)
@@ -160,7 +161,7 @@ def test_knn_topk_op_matches_dense_merge():
     R = synthetic_sparse(70, dim=640, nnz_mean=15, nnz_std=4, seed=160)
     S = synthetic_sparse(90, dim=640, nnz_mean=15, nnz_std=4, seed=6300)
     before = knn_topk_fused.launches
-    st = knn_topk(R, S, k=5, block_r=64, block_s=64)
+    st = knn_topk(R, S, k=5, block_r=64, block_s=64, device="cpu")
     assert knn_topk_fused.launches == before
     jr = jax_synthetic(70, dim=640, nnz_mean=15, nnz_std=4, seed=160)
     js = jax_synthetic(90, dim=640, nnz_mean=15, nnz_std=4, seed=6300)
