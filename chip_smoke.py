@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the three CUDA kernels of src/repro_torch/kernels/csrc (knn_topk,
-knn_score, topk_merge; one nvcc each, in parallel), then, at the paper's
-synthetic setting (configs/paper_knn.py "synthetic-10k":
+Builds the five CUDA kernels of src/repro_torch/kernels/csrc (knn_topk,
+knn_score, topk_merge, flash_attn, wkv; one nvcc each, in parallel),
+then, at the paper's synthetic setting (configs/paper_knn.py "synthetic-10k":
 n_r = n_s = 10,000, dim 10,000, mean nnz 120, k = 5, tile 128, r_block =
 s_block = 2048):
 
@@ -27,10 +27,29 @@ s_block = 2048):
            phase 2's query and to the float64 rows;
   phase 6  merge_topk_states: S split at row 5,000, both halves queried
            through a cached index each and merged; equal to phase 2's
-           query, and the kernel's merge equal to the plain body.
+           query, and the kernel's merge equal to the plain body;
+
+and, at the widths of models the repo supports (S = 4096):
+
+  phase 7  flash_attn against its plain version (edge cases: causal or
+           not, window, bf16, Sq != Skv, ragged 96, GQA g = 1, 2, 8,
+           hd 256), then qwen3-0.6b (H 16, KVH 8, hd 128, causal, B 2)
+           and recurrentgemma-2b (H 10, KVH 1, hd 256, window 2048, B 1)
+           in f32 and bf16, timed beside scaled_dot_product_attention,
+           with the bf16 check's readings for three planted faults (each
+           must fail it); then the op flash_sdpa at both widths, the main
+           path, against the model's _sdpa with _causal_mask (f32);
+  phase 8  wkv against its plain version (edge cases: the reference
+           tests' shapes, ragged T, strong decay, bf16), then rwkv6-3b
+           (B 2, T 4096, H 40, K 64, chunk 128), timed; then the op wkv,
+           the main path, against the model's _chunked_wkv (f32).
+
+Every flash_attn and wkv comparison goes through repro_torch.testing
+(flash_close, wkv_close: one tolerance table with the card tests) and
+prints the largest share of its tolerance that any element used.
 
 Prints the card's name and power limit, the build time, each phase's
-numbers, one JSON line describing every kernel, and as its last line
+numbers, one JSON line describing all five kernels, and as its last line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero; with
 no CUDA device it exits 1 and prints no result.
 """
@@ -70,11 +89,13 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def peaks(name):
-    """(fp32 FLOP/s, bytes/s) published for the card (NVIDIA data sheets)."""
-    if "PCIe" in name:
-        return 51e12, 2.0e12
-    return 67e12, 3.35e12
+def peaks(name, dtype=torch.float32):
+    """(FLOP/s for ``dtype``, bytes/s) published for the card (NVIDIA data
+    sheets): the fp32 rate outside the tensor cores, the dense bf16 rate."""
+    pcie = "PCIe" in name
+    if dtype == torch.bfloat16:
+        return (756e12 if pcie else 989e12), (2.0e12 if pcie else 3.35e12)
+    return (51e12, 2.0e12) if pcie else (67e12, 3.35e12)
 
 
 def phase1_edge_cases(dev):
@@ -152,9 +173,9 @@ def scipy_topk(R, S, rows, k):
     return np.take_along_axis(dense, ids, axis=1), ids
 
 
-def bound(flops, nbytes, name):
+def bound(flops, nbytes, name, dtype=torch.float32):
     """(least ms, "operations" or "bytes"): the larger of the two times."""
-    flop_rate, byte_rate = peaks(name)
+    flop_rate, byte_rate = peaks(name, dtype)
     t_ops, t_bytes = flops / flop_rate, nbytes / byte_rate
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -248,6 +269,297 @@ def phase4_merge_cases(dev):
               f"bit-identical")
 
 
+# Phase 7: flash attention at the widths of two models the repo supports,
+# S = 4096 (train_4k's sequence, src/repro/launch/shapes.py:5)
+FLASH_WIDTHS = {  # b, s, h, kvh, hd, window; causal
+    "qwen3-0.6b": (2, 4096, 16, 8, 128, 0),           # src/repro/configs/qwen3_06b.py
+    "recurrentgemma-2b": (1, 4096, 10, 1, 256, 2048),  # configs/recurrentgemma_2b.py, local attn
+}
+
+
+def flash_qkv(dev, b, s, h, kvh, hd, seed):
+    """f32 q (b, s, h, hd), k and v (b, s, kvh, hd), N(0, 1), made on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev)
+            for shape in ((b, s, h, hd), (b, s, kvh, hd), (b, s, kvh, hd))]
+
+
+def visible_pairs(sq, skv, causal, window):
+    """(query, key) pairs the mask lets through, for one head."""
+    q = torch.arange(sq, dtype=torch.int64)
+    hi = torch.minimum(q + 1, torch.tensor(skv)) if causal else torch.full_like(q, skv)
+    lo = (q - window + 1).clamp(min=0) if window > 0 else torch.zeros_like(q)
+    return int((hi - lo).clamp(min=0).sum())
+
+
+def phase7_edge_cases(dev):
+    """flash_attention_cuda against flash_attention_plain at small shapes;
+    the worst (|Δ|, share of the tolerance used) in f32 and in bf16."""
+    from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attn.ref import flash_attention_plain
+    from repro_torch.testing import flash_close
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # bh, kvh, sq, skv, hd, causal, window, dtype
+        *[(bh, bh, sq, skv, hd, causal, 0, f32)   # tests/test_flash_attn.py:20-25
+          for bh, sq, skv, hd in ((2, 128, 128, 64), (1, 256, 256, 128), (3, 128, 256, 64),
+                                  (2, 256, 128, 32))
+          for causal in (True, False)],
+        (2, 2, 256, 256, 64, True, 64, f32),       # window 64
+        (2, 2, 128, 128, 64, True, 0, bf16),
+        (3, 3, 200, 136, 64, True, 0, bf16),       # bf16, Sq != Skv, ragged
+        (8, 8, 96, 96, 64, True, 0, f32),          # ragged 96, GQA g = 1
+        (8, 4, 96, 96, 64, False, 0, f32),         # ragged 96 non-causal, g = 2
+        (16, 2, 96, 96, 128, True, 0, f32),        # g = 8
+        (4, 2, 160, 160, 256, True, 0, f32),       # hd 256
+        (2, 1, 300, 300, 256, True, 128, bf16),    # hd 256, window, bf16
+        (2, 2, 128, 64, 32, True, 16, f32),        # late rows see no key: zeros
+    ]
+    worst = {f32: (0.0, 0.0), bf16: (0.0, 0.0)}
+    for bh, kvh, sq, skv, hd, causal, window, dtype in cases:
+        g = torch.Generator(device=dev).manual_seed(sq * skv + hd)
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                   for shape in ((bh, sq, hd), (kvh, skv, hd), (kvh, skv, hd)))
+        kw = dict(causal=causal, sm_scale=hd ** -0.5, window=window)
+        got = flash_attention_cuda(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = flash_attention_plain(q, k, v, **kw)
+        err, used = flash_close(got, want)
+        worst[dtype] = tuple(map(max, worst[dtype], (err, used)))
+        print(f"phase 7 flash bh={bh} kvh={kvh} sq={sq} skv={skv} hd={hd} causal={causal} "
+              f"window={window} {str(dtype)[6:]}: max|d|={err:.3e} tol used {used:.3f}")
+    return worst
+
+
+def phase7_planted_faults(q, k, v, window, want):
+    """What the bf16 check reads, against the plain version ``want``, for
+    outputs with a planted fault, each computed in f32 by the model's _sdpa
+    on the same bf16 inputs and rounded to bf16: the diagonal kv tile
+    dropped, kv tile 0 dropped for rows past it, and v's lanes 1 and 2
+    swapped in each group of 4 (a bf16 load fault).  Each must fail."""
+    from repro_torch.kernels.flash_attn.ops import heads_first
+    from repro_torch.models.attention import _causal_mask, _sdpa
+    from repro_torch.testing import flash_tolerance, tolerance_used
+
+    s, hd = q.shape[1], q.shape[3]
+    vis = _causal_mask(s, s, 0, window, device=q.device)[0, 0]
+    pos = torch.arange(s, device=q.device)
+    same_tile = (pos[:, None] // 64) == (pos[None, :] // 64)
+    tile0 = (pos[:, None] >= 64) & (pos[None, :] < 64)
+    lanes = torch.arange(hd, device=q.device).view(-1, 4)[:, [0, 2, 1, 3]].reshape(-1)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    faults = {
+        "diagonal tile dropped": lambda: _sdpa(qf, kf, vf, (vis & ~same_tile)[None, None]),
+        "tile 0 dropped": lambda: _sdpa(qf, kf, vf, (vis & ~tile0)[None, None]),
+        "v lanes 1,2 swapped": lambda: _sdpa(qf, kf, vf[..., lanes], vis[None, None]),
+    }
+    tol = flash_tolerance(want)
+    readings = {}
+    for fault, fn in faults.items():
+        readings[fault] = tolerance_used(heads_first(fn().to(q.dtype)), want, *tol)[1]
+        assert readings[fault] > 1.0, (fault, readings[fault])
+    return readings
+
+
+def phase7_full_width(dev, name, model, dtype):
+    """Kernel against plain at one model's width, with timings: a dict of
+    the kernel line's numbers for this case.  In bf16, the check's readings
+    for planted faults too."""
+    from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attn.ops import heads_first
+    from repro_torch.kernels.flash_attn.ref import flash_attention_plain
+    from repro_torch.models.attention import _causal_mask
+    from repro_torch.testing import flash_close
+
+    b, s, h, kvh, hd, window = FLASH_WIDTHS[model]
+    q, k, v = (x.to(dtype) for x in flash_qkv(dev, b, s, h, kvh, hd, seed=hd))
+    qf, kf, vf = heads_first(q), heads_first(k), heads_first(v)
+    kw = dict(causal=True, sm_scale=hd ** -0.5, window=window)
+    got = flash_attention_cuda(qf, kf, vf, **kw)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(qf, kf, vf, **kw)
+    err, used = flash_close(got, want)
+    if dtype == torch.bfloat16:
+        faults = phase7_planted_faults(q, k, v, window, want)
+        print(f"phase 7 flash {model} bf16 check: kernel uses {used:.3f} of the tolerance; "
+              "planted faults read " + ", ".join(f"{f} {r:.1f}x" for f, r in faults.items()))
+    del want
+    ms = cuda_ms(lambda: flash_attention_cuda(qf, kf, vf, **kw), reps=10)
+    plain_ms = cuda_ms(lambda: flash_attention_plain(qf, kf, vf, **kw), reps=2)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))   # (B, H, S, hd) views
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if window:
+        mask = _causal_mask(s, s, 0, window, device=dev)[0, 0]
+        library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True), reps=5)
+    else:
+        library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), reps=5)
+    flops = 4.0 * hd * visible_pairs(s, s, True, window) * b * h
+    flash_bytes = nbytes(qf, kf, vf, got)
+    bound_ms, bound_by = bound(flops, flash_bytes, name, dtype)
+    n_ctas = -(-s // 64) * b * h
+    print(f"phase 7 flash {model} {str(dtype)[6:]}: B={b} S={s} H={h} KVH={kvh} hd={hd} "
+          f"window={window} CTAs {n_ctas} max|d|={err:.3e} tol used {used:.3f}")
+    print(f"  flash_attn kernel {ms:.3f} ms/launch, plain {plain_ms:.3f} ms, sdpa "
+          f"{library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: {flops:.3e} flop, "
+          f"{flash_bytes:.3e} B), {flops / ms / 1e9:.1f} TFLOP/s")
+    return dict(max_abs_err=err, used=used, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def phase7_main_path(dev, reset_counts, counters):
+    """The op flash_sdpa at both widths, f32 and bf16, as a model calls it;
+    the kernel's launch count over exactly these calls."""
+    from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attn.ops import flash_sdpa, heads_first
+    from repro_torch.kernels.flash_attn.ref import flash_attention_plain
+    from repro_torch.models.attention import _causal_mask, _sdpa
+    from repro_torch.testing import flash_close
+
+    inputs = {m: flash_qkv(dev, *FLASH_WIDTHS[m][:5], seed=7) for m in FLASH_WIDTHS}
+    calls = [(m, dtype) for m in FLASH_WIDTHS for dtype in (torch.float32, torch.bfloat16)]
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = [flash_sdpa(*(x.to(dtype) for x in inputs[m]), causal=True,
+                       window=FLASH_WIDTHS[m][5]) for m, dtype in calls]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_attention_cuda.launches
+    assert launches == len(calls), launches
+    assert all(fn.launches == 0 for fn in counters if fn is not flash_attention_cuda)
+    worst = 0.0
+    for (m, dtype), out in zip(calls, outs):
+        b, s, h, kvh, hd, window = FLASH_WIDTHS[m]
+        q, k, v = (x.to(dtype) for x in inputs[m])
+        assert out.shape == (b, s, h, hd) and out.dtype == dtype
+        assert bool(torch.isfinite(out).all())
+        if dtype == torch.float32:   # the model's own attention, f32
+            want = _sdpa(q, k, v, _causal_mask(s, s, 0, window, device=dev))
+        else:                        # _sdpa would round its scores to bf16
+            want = flash_attention_plain(heads_first(q), heads_first(k), heads_first(v),
+                                         causal=True, sm_scale=hd ** -0.5, window=window)
+            want = want.reshape(b, h, s, hd).transpose(1, 2)
+        err, used = flash_close(out, want)
+        if dtype == torch.float32:
+            worst = max(worst, err)
+        print(f"phase 7 flash_sdpa {m} {str(dtype)[6:]}: vs "
+              f"{'_sdpa + _causal_mask' if dtype == torch.float32 else 'plain'} "
+              f"max|d|={err:.3e} tol used {used:.3f}")
+    print(f"phase 7 main path: {len(calls)} flash_sdpa calls in {wall:.3f} s, launches "
+          f"flash_attn {launches}")
+    return launches, worst
+
+
+# Phase 8: wkv at rwkv6-3b's width (src/repro/configs/rwkv6_3b.py: d_model
+# 2560, head size 64, so H = 40; chunk 128), B = 2, T = 4096
+WKV_WIDTH = (2, 4096, 40, 64, 128)   # b, t, h, head size, chunk
+def wkv_inputs(dev, shape, u_shape, shift, seed):
+    """r, k, v ~ 0.5·N(0,1), lw = -exp(N(0,1) + shift), u ~ 0.1·N(0,1), f32,
+    made on the card.  shift -6 is the model's initial decay
+    (src/repro/models/rwkv6.py:53); -1 makes the ±30 clamps bite."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r, k, v = (0.5 * torch.randn(shape, generator=g, device=dev) for _ in range(3))
+    lw = -torch.exp(torch.randn(shape, generator=g, device=dev) + shift)
+    u = 0.1 * torch.randn(u_shape, generator=g, device=dev)
+    return r, k, v, lw, u
+
+
+def phase8_edge_cases(dev):
+    """wkv_cuda against wkv_plain at small shapes; the worst (|Δ|, share of
+    the tolerance used) in f32 and bf16."""
+    from repro_torch.kernels.wkv.kernel import wkv_cuda
+    from repro_torch.kernels.wkv.ref import wkv_plain
+    from repro_torch.testing import wkv_close
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # bh, t, head size, chunk, decay shift, dtype
+        (2, 64, 32, 16, -4.0, f32),      # tests/test_wkv_kernel.py:26-31
+        (3, 128, 64, 32, -4.0, f32),
+        (1, 256, 64, 128, -4.0, f32),
+        (2, 128, 16, 128, -4.0, f32),
+        (2, 96, 64, 64, -4.0, f32),      # ragged T = 96
+        (4, 96, 64, 128, -4.0, f32),     # ragged, one partial chunk
+        (3, 256, 64, 32, -1.0, f32),     # strong decay, chunk 32
+        (2, 512, 64, 128, -1.0, f32),    # strong decay, chunk 128: clamps at ±30
+        (2, 256, 64, 128, -6.0, bf16),
+        (2, 200, 32, 64, -1.0, bf16),    # bf16, ragged, strong decay
+    ]
+    worst = {f32: (0.0, 0.0), bf16: (0.0, 0.0)}
+    for bh, t, kk, chunk, shift, dtype in cases:
+        r, k, v, lw, u = wkv_inputs(dev, (bh, t, kk), (bh, kk), shift, seed=t * kk + chunk)
+        r, k, v, lw = (x.to(dtype) for x in (r, k, v, lw))
+        got = wkv_cuda(r, k, v, lw, u, chunk=chunk)
+        torch.cuda.synchronize()
+        err, used = wkv_close(got, wkv_plain(r, k, v, lw, u, chunk=chunk))
+        worst[dtype] = tuple(map(max, worst[dtype], (err, used)))
+        print(f"phase 8 wkv bh={bh} t={t} K={kk} chunk={chunk} shift={shift} "
+              f"{str(dtype)[6:]}: max|d|={err:.3e} tol used {used:.3f}")
+    return worst
+
+
+def phase8_full_width(dev, name, reset_counts, counters):
+    """The kernel against its plain version at rwkv6-3b's width, with
+    timings; then the op wkv as the model calls it, f32 and bf16, against
+    the model's _chunked_wkv (f32) and the plain version (bf16)."""
+    from repro_torch.kernels.wkv.kernel import wkv_cuda
+    from repro_torch.kernels.wkv.ops import wkv
+    from repro_torch.kernels.wkv.ref import wkv_plain
+    from repro_torch.models.rwkv6 import _chunked_wkv
+    from repro_torch.testing import wkv_close
+
+    b, t, h, kk, chunk = WKV_WIDTH
+    r, k, v, lw, u = wkv_inputs(dev, (b, t, h, kk), (h, kk), -6.0, seed=3)
+    flat = [x.transpose(1, 2).reshape(b * h, t, kk).contiguous() for x in (r, k, v, lw)]
+    uf = u[None].expand(b, h, kk).reshape(b * h, kk).contiguous()
+    got = wkv_cuda(*flat, uf, chunk=chunk)
+    torch.cuda.synchronize()
+    want = wkv_plain(*flat, uf, chunk=chunk)
+    err, used = wkv_close(got, want)
+    out_max = float(want.abs().max())
+    ms = cuda_ms(lambda: wkv_cuda(*flat, uf, chunk=chunk), reps=10)
+    plain_ms = cuda_ms(lambda: wkv_plain(*flat, uf, chunk=chunk), reps=3)
+    flat16 = [x.bfloat16() for x in flat]
+    got16 = wkv_cuda(*flat16, uf, chunk=chunk)
+    err16, used16 = wkv_close(got16, wkv_plain(*flat16, uf, chunk=chunk))
+    del got16
+    ms16 = cuda_ms(lambda: wkv_cuda(*flat16, uf, chunk=chunk), reps=10)
+    n_chunk_heads = b * h * -(-t // chunk)
+    # per chunk and head: the strictly causal scores and their product with
+    # v (C(C-1)/2 pairs each), the state apply and the state update (C·K²)
+    flops = n_chunk_heads * (2.0 * kk * chunk * (chunk - 1) + 4.0 * chunk * kk * kk)
+    wkv_bytes = nbytes(*flat, uf, got)
+    bound_ms, bound_by = bound(flops, wkv_bytes, name)
+    print(f"phase 8 wkv rwkv6-3b: B={b} T={t} H={h} K={kk} chunk={chunk} CTAs {b * h} "
+          f"max|d|={err:.3e} tol used {used:.3f} (max|out| {out_max:.3f}); bf16 "
+          f"max|d|={err16:.3e} tol used {used16:.3f}")
+    print(f"  wkv kernel {ms:.3f} ms/launch (bf16 {ms16:.3f} ms), plain {plain_ms:.3f} ms, "
+          f"no library call, "
+          f"bound {bound_ms:.4f} ms ({bound_by}: {flops:.3e} flop, {wkv_bytes:.3e} B), "
+          f"{flops / ms / 1e9:.2f} TFLOP/s")
+    del want, got
+
+    reset_counts()
+    t0 = time.perf_counter()
+    out32 = wkv(r, k, v, lw, u, chunk=chunk)
+    out16 = wkv(*(x.bfloat16() for x in (r, k, v, lw)), u, chunk=chunk)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = wkv_cuda.launches
+    assert launches == 2, launches
+    assert all(fn.launches == 0 for fn in counters if fn is not wkv_cuda)
+    for out, dtype in ((out32, torch.float32), (out16, torch.bfloat16)):
+        assert out.shape == (b, t, h, kk) and out.dtype == dtype
+        assert bool(torch.isfinite(out).all())
+    op_err, op_used = wkv_close(out32, _chunked_wkv(r, k, v, lw, u, chunk=chunk))
+    want16 = wkv_plain(*flat16, uf, chunk=chunk).reshape(b, h, t, kk).transpose(1, 2)
+    op_err16, op_used16 = wkv_close(out16, want16)
+    print(f"phase 8 wkv op rwkv6-3b: f32 vs _chunked_wkv max|d|={op_err:.3e} tol used "
+          f"{op_used:.3f}, bf16 vs plain max|d|={op_err16:.3e} tol used {op_used16:.3f}")
+    print(f"phase 8 main path: 2 wkv calls in {wall:.3f} s, launches wkv {launches}")
+    return dict(launches=launches, max_abs_err=max(err, op_err), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None), (
+                    max(err16, op_err16), max(used, op_used), max(used16, op_used16))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -261,6 +573,8 @@ def main():
     from repro_torch.core.engine import JoinSpec, JoinStats, SparseKNNIndex
     from repro_torch.core.topk import TopKState, init_topk, merge_topk_states
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda
+    from repro_torch.kernels.wkv.kernel import wkv_cuda
     from repro_torch.kernels.knn_score.kernel import knn_score_cuda
     from repro_torch.kernels.knn_score.ops import knn_score
     from repro_torch.kernels.knn_score.ref import knn_score_plain
@@ -289,7 +603,8 @@ def main():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print("    ptxas:", line.strip())
-    counters = (knn_topk_fused, knn_score_cuda, topk_merge_cuda)
+    counters = (knn_topk_fused, knn_score_cuda, topk_merge_cuda, flash_attention_cuda,
+                wkv_cuda)
 
     def reset_counts():
         for fn in counters:
@@ -465,6 +780,32 @@ def main():
           f"launches knn_topk {split_counts[0]} topk_merge {split_counts[1]}, vs full query "
           f"max|dscore|={split_err:.3e}, kernel merge bit-identical to the plain body")
 
+    # phase 7: flash attention at qwen3-0.6b and recurrentgemma-2b widths
+    flash_worst = phase7_edge_cases(dev)   # {dtype: (max |Δ|, tolerance used)}
+    flash_full = {}
+    for m in FLASH_WIDTHS:
+        for dtype in (torch.float32, torch.bfloat16):
+            flash_full[m, dtype] = phase7_full_width(dev, name, m, dtype)
+            case = (flash_full[m, dtype]["max_abs_err"], flash_full[m, dtype]["used"])
+            flash_worst[dtype] = tuple(map(max, flash_worst[dtype], case))
+    flash_launches, flash_op_err = phase7_main_path(dev, reset_counts, counters)
+    f32_err = max(flash_worst[torch.float32][0], flash_op_err)
+    print(f"phase 7 worst: f32 max|d| {f32_err:.3e} (tol used "
+          f"{flash_worst[torch.float32][1]:.3f}), bf16 max|d| "
+          f"{flash_worst[torch.bfloat16][0]:.3e} (tol used {flash_worst[torch.bfloat16][1]:.3f})")
+    # the kernels line carries the qwen3-0.6b f32 case and the worst f32 error
+    flash_line = dict(flash_full[("qwen3-0.6b", torch.float32)], max_abs_err=f32_err)
+
+    # phase 8: wkv at rwkv6-3b's width
+    wkv_edge = phase8_edge_cases(dev)
+    wkv_line, (wkv_err16, wkv_used, wkv_used16) = phase8_full_width(dev, name, reset_counts,
+                                                                      counters)
+    wkv_line["max_abs_err"] = max(wkv_line["max_abs_err"], wkv_edge[torch.float32][0])
+    print(f"phase 8 worst: f32 max|d| {wkv_line['max_abs_err']:.3e} (tol used "
+          f"{max(wkv_used, wkv_edge[torch.float32][1]):.3f}), bf16 max|d| "
+          f"{max(wkv_err16, wkv_edge[torch.bfloat16][0]):.3e} (tol used "
+          f"{max(wkv_used16, wkv_edge[torch.bfloat16][1]):.3f})")
+
     print(json.dumps({"kernels": [
         {
             "name": "knn_topk",
@@ -504,6 +845,22 @@ def main():
             "bound_ms": merge_bound_ms,
             "bound_by": merge_bound_by,
             "library_ms": merge_library_ms,
+        },
+        {
+            "name": "flash_attn",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+            "replaces": "src/repro/kernels/flash_attn/kernel.py:36",
+            "launches": flash_launches,
+            **{key: flash_line[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")},
+        },
+        {
+            "name": "wkv",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/wkv.cu",
+            "replaces": "src/repro/kernels/wkv/kernel.py:37",
+            **wkv_line,   # library_ms null: no single PyTorch call computes WKV
         },
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,14 +1,19 @@
-"""The parity rule for top-k results (ROADMAP.md "Parity standard").
+"""How the port's results are held to their references.
 
-Scores agree within a tolerance; ids are equal, except inside a group of
+The parity rule for top-k results (ROADMAP.md "Parity standard"): scores
+agree within a tolerance; ids are equal, except inside a group of
 positions whose reference scores tie within that tolerance, where the id
 *sets* must be equal.  A tie group cut off by k at the tail is held to its
 scores only: which of the tied candidates made the cut depends on the
 last ulp.
+
+The LM kernels (flash_attn, wkv) are held to their plain versions by
+``flash_close`` and ``wkv_close``, one tolerance table for every caller.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def assert_topk_close(got_s, got_i, ref_s, ref_i, rtol=1e-5, atol=1e-6) -> float:
@@ -33,3 +38,64 @@ def assert_topk_close(got_s, got_i, ref_s, ref_i, rtol=1e-5, atol=1e-6) -> float
                     f"(scores {ref_s[r].tolist()})")
     finite = np.isfinite(ref_s)
     return float(np.abs(got_s[finite] - ref_s[finite]).max(initial=0.0))
+
+
+# The LM kernels against their plain versions (rtol, atol).  flash_attn f32
+# and wkv f32: summation order only.  flash_attn bf16: the kernel rounds p to
+# bf16 before PV, as the Pallas kernel does, and the plain version does not;
+# that moves an output by a few 2^-9 of its row's RMS, so the absolute part
+# is scaled by the row's RMS, and one bf16 ulp of the output's own rounding
+# falls under rtol.  wkv: the kernel's cumsum is sequential, torch.cumsum's
+# is not, and the exps amplify the difference; the outputs reach tens at
+# T = 4096, so the absolute part is scaled by max(1, max|want|).  wkv bf16
+# computes in f32 on the same rounded inputs: only the output's rounding is
+# added, under rtol.
+FLASH_TOL = {torch.float32: (1e-5, 2e-5), torch.bfloat16: (1.6e-2, 1.6e-2)}
+WKV_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (1.6e-2, 2e-4)}
+
+
+def tolerance_used(got, want, rtol, atol, scale=1.0) -> tuple[float, float]:
+    """(max |got - want|, the largest share of rtol·|want| + atol·scale that
+    any element uses), compared in f32; ``scale`` broadcasts against
+    ``want``.  A share above 1 fails; NaN reads as inf."""
+    g, w = got.float(), want.float()
+    if g.shape != w.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{got.dtype} {tuple(g.shape)} != {want.dtype} {tuple(w.shape)}")
+    if not w.numel():
+        return 0.0, 0.0
+    diff = (g - w).abs()
+    used = torch.where(diff == 0, 0.0, diff / (rtol * w.abs() + atol * scale))
+    used = used.nan_to_num(nan=float("inf"), posinf=float("inf"))
+    return float(diff.nan_to_num(nan=float("inf")).max()), float(used.max())
+
+
+def close_within(got, want, rtol, atol, scale=1.0) -> tuple[float, float]:
+    """Raise AssertionError unless |got - want| <= rtol·|want| + atol·scale
+    everywhere; return ``tolerance_used``."""
+    max_diff, used = tolerance_used(got, want, rtol, atol, scale)
+    if used > 1.0:
+        raise AssertionError(f"max |got - want| = {max_diff:.3e}; an element uses "
+                             f"{used:.3g}x its tolerance (rtol {rtol}, atol {atol} x scale)")
+    return max_diff, used
+
+
+def flash_tolerance(want) -> tuple[float, float, object]:
+    """(rtol, atol, scale) for flash_attn outputs: FLASH_TOL[want.dtype]; in
+    bf16 the absolute part is scaled by each query row's RMS over hd."""
+    rtol, atol = FLASH_TOL[want.dtype]
+    if want.dtype != torch.bfloat16:
+        return rtol, atol, 1.0
+    return rtol, atol, want.float().pow(2).mean(dim=-1, keepdim=True).sqrt()
+
+
+def flash_close(got, want) -> tuple[float, float]:
+    """``close_within`` at ``flash_tolerance(want)``."""
+    return close_within(got, want, *flash_tolerance(want))
+
+
+def wkv_close(got, want) -> tuple[float, float]:
+    """``close_within`` at WKV_TOL[want.dtype], the absolute part scaled by
+    max(1, max|want|)."""
+    rtol, atol = WKV_TOL[want.dtype]
+    scale = max(1.0, float(want.float().abs().max())) if want.numel() else 1.0
+    return close_within(got, want, rtol, atol, scale)

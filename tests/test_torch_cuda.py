@@ -1,6 +1,7 @@
-"""The port's CUDA kernels on the card: knn_topk_fused, knn_score_cuda and
-topk_merge_cuda against their plain versions, merge_topk_states, the
-wrappers' input checks, and the fused-kernel join path in both modes.
+"""The port's CUDA kernels on the card: knn_topk_fused, knn_score_cuda,
+topk_merge_cuda, flash_attention_cuda and wkv_cuda against their plain
+versions, merge_topk_states, the public ops, the wrappers' input checks,
+and the fused-kernel join path in both modes.
 Every test here needs a CUDA device and skips without one.  The file imports neither jax
 nor repro, so it runs on a machine with the card alone:
 
@@ -14,6 +15,9 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.blocknl import knn_join  # noqa: E402
 from repro_torch.core.engine import JoinSpec, SparseKNNIndex  # noqa: E402
 from repro_torch.core.topk import TopKState, init_topk, merge_topk_states, min_prune_score  # noqa: E402,E501
+from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.flash_attn.ops import flash_sdpa  # noqa: E402
+from repro_torch.kernels.flash_attn.ref import flash_attention_plain  # noqa: E402
 from repro_torch.kernels.knn_score.kernel import knn_score_cuda  # noqa: E402
 from repro_torch.kernels.knn_score.ops import (  # noqa: E402
     _pad_rows,
@@ -27,9 +31,14 @@ from repro_torch.kernels.knn_topk.ops import column_meta, pad_state  # noqa: E40
 from repro_torch.kernels.knn_topk.ref import knn_topk_plain  # noqa: E402
 from repro_torch.kernels.topk_merge.kernel import insert_candidates, topk_merge_cuda  # noqa: E402
 from repro_torch.kernels.topk_merge.ref import topk_merge_plain  # noqa: E402
+from repro_torch.kernels.wkv.kernel import wkv_cuda  # noqa: E402
+from repro_torch.kernels.wkv.ops import wkv  # noqa: E402
+from repro_torch.kernels.wkv.ref import wkv_plain  # noqa: E402
+from repro_torch.models.attention import _causal_mask, _sdpa  # noqa: E402
+from repro_torch.models.rwkv6 import _chunked_wkv  # noqa: E402
 from repro_torch.sparse.datagen import synthetic_sparse  # noqa: E402
 from repro_torch.sparse.format import tile_occupancy  # noqa: E402
-from repro_torch.testing import assert_topk_close  # noqa: E402
+from repro_torch.testing import assert_topk_close, flash_close, wkv_close  # noqa: E402
 
 RTOL, ATOL = 1e-5, 1e-6
 pytestmark = pytest.mark.cuda
@@ -207,3 +216,118 @@ def test_score_and_merge_wrappers_reject_bad_inputs(cuda):
     big = torch.full((32, 129), float("-inf"), device=cuda)
     with pytest.raises(ValueError, match="k must be"):
         topk_merge_cuda(big, big.int(), cs, ci)
+
+
+def _qkv(dev, bh, kvh, sq, skv, hd, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=g).to(dev, dtype)
+            for shape in ((bh, sq, hd), (kvh, skv, hd), (kvh, skv, hd))]
+
+
+@pytest.mark.parametrize("bh,kvh,sq,skv,hd,causal,window,dtype", [
+    (2, 2, 128, 128, 64, True, 0, torch.float32),
+    (3, 3, 128, 256, 64, False, 0, torch.float32),    # Sq != Skv
+    (2, 2, 256, 128, 32, True, 0, torch.float32),
+    (4, 2, 96, 96, 64, False, 0, torch.float32),      # ragged, GQA g = 2
+    (4, 2, 96, 100, 128, True, 0, torch.float32),     # ragged Sq != Skv
+    (8, 1, 200, 200, 128, True, 64, torch.float32),   # window, GQA g = 8
+    (2, 1, 130, 130, 256, True, 0, torch.float32),    # hd 256
+    (2, 2, 128, 128, 64, True, 0, torch.bfloat16),
+    (2, 1, 160, 160, 256, True, 48, torch.bfloat16),  # bf16, window, hd 256
+    (2, 2, 128, 64, 32, True, 16, torch.float32),     # late rows see no key
+])
+def test_flash_kernel_matches_plain(cuda, bh, kvh, sq, skv, hd, causal, window, dtype):
+    q, k, v = _qkv(cuda, bh, kvh, sq, skv, hd, dtype, seed=sq + skv + hd)
+    before = flash_attention_cuda.launches
+    got = flash_attention_cuda(q, k, v, causal=causal, sm_scale=hd ** -0.5, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_plain(q, k, v, causal=causal, sm_scale=hd ** -0.5, window=window)
+    flash_close(got, want)
+
+
+def test_flash_sdpa_op_matches_model_sdpa(cuda):
+    b, s, h, kvh, hd = 2, 200, 8, 2, 128
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn((b, s, h, hd), generator=g)
+    k, v = (torch.randn((b, s, kvh, hd), generator=g) for _ in range(2))
+    before = flash_attention_cuda.launches
+    got = flash_sdpa(q, k, v, causal=True, window=64)     # CPU inputs, run on the card
+    assert got.device.type == "cuda" and flash_attention_cuda.launches == before + 1
+    want = _sdpa(q.to(cuda), k.to(cuda), v.to(cuda), _causal_mask(s, s, 0, 64, device=cuda))
+    flash_close(got, want)
+
+
+def test_flash_wrapper_rejects_bad_inputs(cuda):
+    q, k, v = _qkv(cuda, 4, 2, 64, 64, 64, torch.float32)
+    with pytest.raises(TypeError):    # dtype
+        flash_attention_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):    # k in another dtype than q
+        flash_attention_cuda(q, k.bfloat16(), v)
+    with pytest.raises(ValueError):   # another device
+        flash_attention_cuda(q, k.cpu(), v)
+    with pytest.raises(ValueError):   # contiguity
+        flash_attention_cuda(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="head width"):
+        qq, kk, vv = _qkv(cuda, 4, 2, 64, 64, 48, torch.float32)
+        flash_attention_cuda(qq, kk, vv)
+    with pytest.raises(ValueError):   # 4 query heads over 3 kv heads
+        flash_attention_cuda(q, k[:1].repeat(3, 1, 1), v[:1].repeat(3, 1, 1))
+
+
+def _wkv_inputs(dev, shape, u_shape, shift, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    r, k, v = (0.5 * torch.randn(shape, generator=g) for _ in range(3))
+    lw = -torch.exp(torch.randn(shape, generator=g) + shift)
+    u = 0.1 * torch.randn(u_shape, generator=g)
+    return [x.to(dev, dtype) for x in (r, k, v, lw)] + [u.to(dev)]
+
+
+@pytest.mark.parametrize("bh,t,kk,chunk,shift,dtype", [
+    (2, 64, 32, 16, -4.0, torch.float32),
+    (3, 128, 64, 32, -4.0, torch.float32),
+    (1, 256, 64, 128, -4.0, torch.float32),
+    (2, 128, 16, 128, -4.0, torch.float32),
+    (2, 96, 64, 64, -4.0, torch.float32),      # ragged T
+    (2, 128, 64, 32, -1.0, torch.float32),     # strong decay: the clamps bite
+    (2, 300, 64, 128, -6.0, torch.bfloat16),   # bf16, ragged
+])
+def test_wkv_kernel_matches_plain(cuda, bh, t, kk, chunk, shift, dtype):
+    r, k, v, lw, u = _wkv_inputs(cuda, (bh, t, kk), (bh, kk), shift, dtype, seed=t + kk)
+    before = wkv_cuda.launches
+    got = wkv_cuda(r, k, v, lw, u, chunk=chunk)
+    torch.cuda.synchronize()
+    assert wkv_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == r.shape
+    want = wkv_plain(r, k, v, lw, u, chunk=chunk)
+    wkv_close(got, want)
+
+
+@pytest.mark.parametrize("shift", [-4.0, -1.0])
+def test_wkv_op_matches_model_chunked_wkv(cuda, shift):
+    r, k, v, lw, u = _wkv_inputs("cpu", (2, 96, 4, 64), (4, 64), shift, torch.float32)
+    before = wkv_cuda.launches
+    got = wkv(r, k, v, lw, u, chunk=32)          # CPU inputs, run on the card
+    assert got.device.type == "cuda" and wkv_cuda.launches == before + 1
+    want = _chunked_wkv(*(x.to(cuda) for x in (r, k, v, lw, u)), chunk=32)
+    wkv_close(got, want)
+
+
+def test_wkv_wrapper_rejects_bad_inputs(cuda):
+    r, k, v, lw, u = _wkv_inputs(cuda, (2, 64, 64), (2, 64), -4.0, torch.float32)
+    with pytest.raises(TypeError):    # dtype
+        wkv_cuda(r.half(), k.half(), v.half(), lw.half(), u)
+    with pytest.raises(TypeError):    # lw in another dtype than r
+        wkv_cuda(r, k, v, lw.bfloat16(), u)
+    with pytest.raises(TypeError):    # u must be f32
+        wkv_cuda(r, k, v, lw, u.bfloat16())
+    with pytest.raises(ValueError):   # another device
+        wkv_cuda(r, k.cpu(), v, lw, u)
+    with pytest.raises(ValueError):   # contiguity
+        wkv_cuda(r, k, v.transpose(1, 2).contiguous().transpose(1, 2), lw, u)
+    with pytest.raises(ValueError, match="head size"):
+        rr, kk_, vv, ll, uu = _wkv_inputs(cuda, (2, 64, 48), (2, 48), -4.0, torch.float32)
+        wkv_cuda(rr, kk_, vv, ll, uu)
+    with pytest.raises(ValueError, match="chunk"):
+        wkv_cuda(r, k, v, lw, u, chunk=48)

@@ -1,0 +1,111 @@
+"""The port's WKV (src/repro_torch/kernels/wkv and models/rwkv6) against
+the JAX package's, on the same seeded numpy inputs: the plain version
+against the Pallas kernel (interpret mode) and the exact sequential
+recurrence, the port's ``_chunked_wkv`` against the JAX model's, and the
+op against the JAX op.  The CUDA kernel itself is held to the plain
+version in tests/test_torch_cuda.py."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels.wkv.kernel import wkv_pallas  # noqa: E402
+from repro.kernels.wkv.ops import wkv as jax_wkv  # noqa: E402
+from repro.kernels.wkv.ref import wkv_sequential  # noqa: E402
+from repro.models.rwkv6 import _chunked_wkv as jax_chunked_wkv  # noqa: E402
+from repro_torch.kernels.wkv.kernel import wkv_cuda  # noqa: E402
+from repro_torch.kernels.wkv.ops import wkv  # noqa: E402
+from repro_torch.kernels.wkv.ref import wkv_plain  # noqa: E402
+from repro_torch.models.rwkv6 import _chunked_wkv  # noqa: E402
+
+
+def _inputs(shape, u_shape, seed=0, decay_shift=-4.0):
+    """r, k, v ~ 0.5·N(0,1); lw = -exp(N(0,1) + shift) (the model's decay
+    scale at -4 to -6; -1 makes the ±30 clamp bite); u ~ 0.1·N(0,1)."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (0.5 * rng.standard_normal(shape) for _ in range(3))
+    lw = -np.exp(rng.standard_normal(shape) + decay_shift)
+    u = 0.1 * rng.standard_normal(u_shape)
+    return [x.astype(np.float32) for x in (r, k, v, lw, u)]
+
+
+def _jax(arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+def _torch(arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("bh,t,kk,chunk", [
+    (2, 64, 32, 16),
+    (3, 128, 64, 32),
+    (1, 256, 64, 128),   # two chunks
+    (2, 128, 16, 128),   # one chunk
+])
+def test_plain_matches_pallas_and_sequential(bh, t, kk, chunk):
+    arrays = _inputs((bh, t, kk), (bh, kk), seed=t + kk)
+    got = wkv_plain(*_torch(arrays), chunk=chunk).numpy()
+    pallas = np.asarray(wkv_pallas(*_jax(arrays), chunk=chunk))
+    seq = np.asarray(wkv_sequential(*_jax(arrays)))
+    np.testing.assert_allclose(got, pallas, atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(got, seq, atol=2e-4, rtol=2e-4)
+
+
+def test_plain_chunk_invariance():
+    """The same result for any chunking (the carry composition is exact)."""
+    arrays = _torch(_inputs((2, 128, 32), (2, 32), seed=3))
+    o1 = wkv_plain(*arrays, chunk=16)
+    o2 = wkv_plain(*arrays, chunk=64)
+    np.testing.assert_allclose(o1.numpy(), o2.numpy(), atol=2e-4)
+
+
+@pytest.mark.parametrize("decay_shift", [-4.0, -1.0])
+def test_model_chunked_wkv_matches_jax(decay_shift):
+    """Under strong decay (-1.0) the ±30 clamp bites: both packages share it."""
+    arrays = _inputs((2, 96, 4, 16), (4, 16), seed=5, decay_shift=decay_shift)
+    got = _chunked_wkv(*_torch(arrays), chunk=32).numpy()
+    want = np.asarray(jax_chunked_wkv(*_jax(arrays), chunk=32))
+    np.testing.assert_allclose(got, want, atol=3e-4, rtol=3e-4)
+
+
+@pytest.mark.parametrize("decay_shift", [-4.0, -1.0])
+@pytest.mark.parametrize("t,chunk", [(96, 32), (100, 32)])   # 100: ragged, the op pads
+def test_op_matches_jax_op_and_model(decay_shift, t, chunk):
+    b, h, kk = 2, 4, 16
+    arrays = _inputs((b, t, h, kk), (h, kk), seed=t, decay_shift=decay_shift)
+    got = wkv(*_torch(arrays), chunk=chunk, device="cpu")
+    assert got.shape == (b, t, h, kk) and got.dtype == torch.float32
+    want_op = np.asarray(jax_wkv(*_jax(arrays), chunk=chunk))
+    np.testing.assert_allclose(got.numpy(), want_op, atol=3e-4, rtol=3e-4)
+    if t % chunk == 0:
+        want_model = np.asarray(jax_chunked_wkv(*_jax(arrays), chunk=chunk))
+        np.testing.assert_allclose(got.numpy(), want_model, atol=3e-4, rtol=3e-4)
+
+
+def test_plain_bf16_rounds_inputs_only():
+    """bf16 inputs are computed in f32 and the output rounded to bf16: the
+    same as the f32 computation on the rounded inputs."""
+    arrays = _torch(_inputs((2, 64, 32), (2, 32), seed=9))
+    r, k, v, lw = (x.bfloat16() for x in arrays[:4])
+    got = wkv_plain(r, k, v, lw, arrays[4], chunk=32)
+    assert got.dtype == torch.bfloat16
+    want = wkv_plain(r.float(), k.float(), v.float(), lw.float(), arrays[4], chunk=32)
+    torch.testing.assert_close(got, want.bfloat16(), rtol=0, atol=0)
+
+
+def test_wkv_needs_cuda_unless_cpu_is_named(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = torch.zeros(1, 16, 2, 16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        wkv(x, x, x, x, torch.zeros(2, 16))
+
+
+def test_cpu_tensors_launch_nothing():
+    r, k, v, lw, u = _torch(_inputs((2, 48, 16), (2, 16), seed=1))
+    before = wkv_cuda.launches
+    out = wkv_cuda(r, k, v, lw, u, chunk=16)
+    wkv(*(x[None].transpose(1, 2) for x in (r, k, v, lw)), u, chunk=16, device="cpu")
+    assert wkv_cuda.launches == before
+    torch.testing.assert_close(out, wkv_plain(r, k, v, lw, u, chunk=16), rtol=0, atol=0)
