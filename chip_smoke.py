@@ -4,15 +4,20 @@
     python3 chip_smoke.py
 
 Builds the five CUDA kernels of src/repro_torch/kernels/csrc (knn_topk,
-knn_score, topk_merge, flash_attn, wkv; one nvcc each, in parallel),
+knn_score, topk_merge, flash_attn, wkv) and the first designs of knn_topk
+and knn_score kept in csrc/legacy (one nvcc each, all in parallel),
 then, at the paper's synthetic setting (configs/paper_knn.py "synthetic-10k":
 n_r = n_s = 10,000, dim 10,000, mean nnz 120, k = 5, tile 128, r_block =
 s_block = 2048):
 
   phase 1  the kernel against its plain PyTorch version on the card: edge
            cases at small shapes (k = 12, k = 128, ragged S block, masked
-           columns, seeded threshold), then one 2048-row R block against the
-           full S stack at the engine's own shapes, with timings;
+           columns, seeded threshold, equal scores in two S ranges, an R
+           block that offers nothing), then one 2048-row R block against the
+           full S stack at the engine's own shapes, with timings, the split's
+           CTAs and ranges, ptxas's registers and spills, and the outputs
+           and time of the kernel's first (sequential) design on the same
+           inputs (csrc/legacy/), which must be equal bit for bit;
   phase 2  the main path, cached mode: SparseKNNIndex.build + two queries,
            one kernel launch per R block, 256 rows checked against a float64
            top-k computed with scipy.sparse;
@@ -21,7 +26,8 @@ s_block = 2048):
   phase 4  knn_score and topk_merge against their plain versions on the
            card: edge cases (block sizes 16 to 256, tile 256, ragged S; k
            from 1 to 128, ragged M, ties, -inf, shared ids), then the
-           engine's shapes, with timings;
+           engine's shapes, with timings (knn_score also beside its first
+           design, bit for bit);
   phase 5  the unfused path at full width: per R block knn_score against
            all of S, the > 0 mask, topk_merge into a fresh state; equal to
            phase 2's query and to the float64 rows;
@@ -55,6 +61,7 @@ no CUDA device it exits 1 and prints no result.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -106,40 +113,50 @@ def phase1_edge_cases(dev):
     from repro_torch.kernels.knn_topk.ref import knn_topk_plain
     from repro_torch.sparse.datagen import synthetic_sparse
     from repro_torch.sparse.format import tile_occupancy
-    from repro_torch.testing import assert_topk_close
+    from repro_torch.testing import assert_topk_close, doubled, with_zero_rows
 
-    cases = [  # name, nr, ns, dim, block_r, block_s, k, masked, seeded thr
-        ("k8", 64, 64, 256, 64, 64, 8, False, False),
-        ("k5-ragged-rows-and-s", 70, 90, 640, 64, 64, 5, False, False),
-        ("k12-small-blocks", 48, 100, 512, 16, 32, 12, False, False),
-        ("k3-tall-thin", 32, 200, 1024, 32, 64, 3, False, False),
-        ("k128-ragged-s", 300, 1100, 512, 256, 256, 128, False, False),
-        ("k7-masked-columns", 40, 300, 512, 32, 96, 7, True, False),
-        ("k5-seeded-thr", 200, 600, 1024, 104, 256, 5, False, True),
-    ]
-    worst = 0.0
-    for name, nr, ns, dim, br, bs, k, masked, seeded in cases:
-        R = synthetic_sparse(nr, dim=dim, nnz_mean=14, nnz_std=4, seed=nr + ns).to(dev)
-        S = synthetic_sparse(ns, dim=dim, nnz_mean=14, nnz_std=4, seed=nr * ns).to(dev)
+    def tiles_and_lists(R, S, br, bs):
         r_tiles = _pad_rows(dense_tiles_with_sentinel(R, TILE), br)
         s_tiles = _pad_rows(dense_tiles_with_sentinel(S, TILE), bs)
         active = torch.as_tensor(active_lists(
             tile_occupancy(R, TILE).cpu().numpy(), tile_occupancy(S, TILE).cpu().numpy(),
             br, bs), device=dev)
+        return r_tiles, s_tiles, active
+
+    cases = [  # name, nr, ns, dim, block_r, block_s, k, masked, seeded thr, variant
+        ("k8", 64, 64, 256, 64, 64, 8, False, False, None),
+        ("k5-ragged-rows-and-s", 70, 90, 640, 64, 64, 5, False, False, None),
+        ("k12-small-blocks", 48, 100, 512, 16, 32, 12, False, False, None),
+        ("k3-tall-thin", 32, 200, 1024, 32, 64, 3, False, False, None),
+        ("k128-ragged-s", 300, 1100, 512, 256, 256, 128, False, False, None),
+        ("k7-masked-columns", 40, 300, 512, 32, 96, 7, True, False, None),
+        ("k5-seeded-thr", 200, 600, 1024, 104, 256, 5, False, True, None),
+        # S's second half repeats its first: equal scores in two S ranges
+        ("ties-across-ranges", 300, 1024, 512, 256, 128, 16, False, False, "ties"),
+        # R block 1 zeroed after the warm pass: it offers nothing, keeps thr_in
+        ("no-offer", 100, 320, 1024, 32, 64, 5, False, True, "no-offer"),
+    ]
+    worst = 0.0
+    for name, nr, ns, dim, br, bs, k, masked, seeded, variant in cases:
+        R = synthetic_sparse(nr, dim=dim, nnz_mean=14, nnz_std=4, seed=nr + ns).to(dev)
+        if variant == "ties":
+            S = doubled(synthetic_sparse(ns // 2, dim=dim, nnz_mean=14, nnz_std=4, seed=7)).to(dev)
+        else:
+            S = synthetic_sparse(ns, dim=dim, nnz_mean=14, nnz_std=4, seed=nr * ns).to(dev)
         s_valid = np.random.default_rng(ns).random(ns) > 0.3 if masked else None
-        valid, ids = column_meta(ns, s_tiles.shape[1], s_valid=s_valid, device=dev)
         state = init_topk(nr, k, device=dev)
         if seeded:  # a warm state and its MinPruneScore from a first pass
             half = S.rows(0, ns // 2)
-            h_tiles = _pad_rows(dense_tiles_with_sentinel(half, TILE), bs)
-            h_active = torch.as_tensor(active_lists(
-                tile_occupancy(R, TILE).cpu().numpy(), tile_occupancy(half, TILE).cpu().numpy(),
-                br, bs), device=dev)
+            r_tiles, h_tiles, h_active = tiles_and_lists(R, half, br, bs)
             hv, hi = column_meta(ns // 2, h_tiles.shape[1], device=dev)
             i_s, i_i = pad_state(state, r_tiles.shape[1])
             w_s, w_i, _ = knn_topk_plain(r_tiles, h_tiles, h_active, hv, hi, i_s, i_i,
                                          block_r=br, block_s=bs)
             state = type(state)(w_s[:nr], w_i[:nr])
+        if variant == "no-offer":
+            R = with_zero_rows(R, br, 2 * br)
+        r_tiles, s_tiles, active = tiles_and_lists(R, S, br, bs)
+        valid, ids = column_meta(ns, s_tiles.shape[1], s_valid=s_valid, device=dev)
         init_s, init_i = pad_state(state, r_tiles.shape[1])
         thr = min_prune_score(state).reshape(1, 1)
         nrv = torch.full((1,), nr, dtype=torch.int32, device=dev)
@@ -150,6 +167,14 @@ def phase1_edge_cases(dev):
         ref = knn_topk_plain(*args, **kw)
         err = assert_topk_close(got[0].cpu(), got[1].cpu(), ref[0].cpu(), ref[1].cpu(), RTOL, ATOL)
         np.testing.assert_allclose(got[2].cpu().numpy(), ref[2].cpu().numpy(), rtol=RTOL, atol=ATOL)
+        if variant == "ties":   # some row holds both copies of one S row
+            ids_ = got[1][:nr]
+            assert bool(((ids_[:, :, None] == ids_[:, None, :] + ns // 2)
+                         & (ids_[:, None, :] >= 0)).any())
+        if variant == "no-offer":   # block 1 kept its seed and thr_in
+            assert float(got[2][1]) == float(thr)
+            assert torch.equal(got[0][br:2 * br], init_s[br:2 * br])
+            assert float(init_s[br:2 * br, -1].min()) > float(thr)
         worst = max(worst, err)
         print(f"phase 1 {name}: NR={r_tiles.shape[1]} NS={s_tiles.shape[1]} k={k} "
               f"max|dscore|={err:.3e} thr_out={got[2].flatten().tolist()[:4]}")
@@ -182,6 +207,32 @@ def bound(flops, nbytes, name, dtype=torch.float32):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def ptxas_usage(log):
+    """{entry function: (registers, spill store bytes, spill load bytes)}
+    from an ``nvcc -Xptxas -v`` log."""
+    usage, fn, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn, spills = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            usage[fn] = (int(m.group(1)), *spills)
+    return usage
+
+
+def usage_of(usage, part):
+    """"N registers, S/L B spilled" of the one entry whose name holds ``part``."""
+    hits = [v for f, v in usage.items() if part in f]
+    if len(hits) != 1:
+        return f"ptxas usage of {part} not found"
+    regs, st, ld = hits[0]
+    return f"{regs} registers, spills {st} B stored / {ld} B loaded"
 
 
 def max_abs_err(got, want):
@@ -578,8 +629,9 @@ def main():
     from repro_torch.kernels.knn_score.kernel import knn_score_cuda
     from repro_torch.kernels.knn_score.ops import knn_score
     from repro_torch.kernels.knn_score.ref import knn_score_plain
-    from repro_torch.kernels.knn_topk.kernel import knn_topk_fused
+    from repro_torch.kernels.knn_topk.kernel import TILE_ROWS, knn_topk_fused, split_ranges
     from repro_torch.kernels.knn_topk.ref import knn_topk_plain
+    from repro_torch.kernels.legacy import knn_score_v1, knn_topk_v1
     from repro_torch.kernels.topk_merge.kernel import insert_candidates, topk_merge_cuda
     from repro_torch.kernels.topk_merge.ops import topk_merge
     from repro_torch.kernels.topk_merge.ref import topk_merge_plain
@@ -598,11 +650,12 @@ def main():
     built = _build.build()
     print(f"build {len(built)} kernels (one nvcc each, in parallel): "
           f"{time.perf_counter() - t0:.2f} s")
+    usage = {}
     for kname, (lib, log) in sorted(built.items()):
         print(f"  {kname} -> {os.path.relpath(lib, root)}")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print("    ptxas:", line.strip())
+        for fn, (regs, st, ld) in sorted(ptxas_usage(log).items()):
+            print(f"    ptxas: {fn}: {regs} registers, spill stores {st} B, loads {ld} B")
+        usage.update(ptxas_usage(log))
     counters = (knn_topk_fused, knn_score_cuda, topk_merge_cuda, flash_attention_cuda,
                 wkv_cuda)
 
@@ -656,7 +709,7 @@ def main():
     engine_err = assert_topk_close(got[0].cpu(), got[1].cpu(), ref[0].cpu(), ref[1].cpu(),
                                    RTOL, ATOL)
     np.testing.assert_allclose(got[2].cpu().numpy(), ref[2].cpu().numpy(), rtol=RTOL, atol=ATOL)
-    kernel_ms = cuda_ms(lambda: knn_topk_fused(*args, **kwargs), reps=3)
+    kernel_ms = cuda_ms(lambda: knn_topk_fused(*args, **kwargs), reps=10)
     plain_ms = cuda_ms(lambda: knn_topk_plain(*args, **kwargs), reps=2)
     s_dev = S.to(dev)
     r_dense, s_dense = densify(br), densify(s_dev)
@@ -667,13 +720,31 @@ def main():
     flops = 2.0 * block_r * block_s * TILE * n_active
     topk_bytes = nbytes(*args, *got) + 4 * 2  # thr and nr_valid
     bound_ms, bound_by = bound(flops, topk_bytes, name)
-    n_ctas = args[0].shape[1] // block_r
+    n_rb, n_sb = args[0].shape[1] // block_r, args[1].shape[1] // block_s
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_ranges, range_len = split_ranges(n_rb, n_sb, block_r, block_s, n_sm)
+    n_ctas = n_rb * -(-block_r // TILE_ROWS) * n_ranges
     print(f"phase 1 engine shapes: NR={args[0].shape[1]} NS={args[1].shape[1]} T+1="
-          f"{args[0].shape[0]} A={args[2].shape[2]} active entries {n_active} CTAs {n_ctas} "
+          f"{args[0].shape[0]} A={args[2].shape[2]} active entries {n_active} "
           f"max|dscore|={engine_err:.3e}")
-    print(f"  knn_topk kernel {kernel_ms:.3f} ms/launch, plain {plain_ms:.3f} ms, "
-          f"dense matmul+topk {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}: "
-          f"{flops:.3e} flop, {topk_bytes:.3e} B)")
+    print(f"  knn_topk pass 1: {n_ctas} CTAs ({n_ctas // n_ranges} R tiles x P={n_ranges} "
+          f"ranges of {range_len} 128-column tile(s)) on {n_sm} SMs, "
+          f"{usage_of(usage, 'knn_topk_selectILi1E')}; pass 2: {n_rb} CTAs, "
+          f"{usage_of(usage, 'knn_topk_mergeILi1E')}")
+    print(f"  knn_topk kernel {kernel_ms:.3f} ms/launch ({flops / kernel_ms / 1e9:.1f} TFLOP/s), "
+          f"plain {plain_ms:.3f} ms, dense matmul+topk {library_ms:.3f} ms, bound "
+          f"{bound_ms:.3f} ms ({bound_by}: {flops:.3e} flop, {topk_bytes:.3e} B)")
+
+    # the first (sequential) design on the same inputs: bit for bit, and its time
+    old = knn_topk_v1(*args, **kwargs)
+    torch.cuda.synchronize()
+    v1_same = all(torch.equal(a, b) for a, b in zip(got, old))
+    v1_err = max(max_abs_err(got[0], old[0]), max_abs_err(got[2], old[2]))
+    v1_ms = cuda_ms(lambda: knn_topk_v1(*args, **kwargs), reps=1)
+    print(f"  knn_topk vs the first design: bit-identical {v1_same}, max|d| {v1_err:.3e}; "
+          f"first design {v1_ms:.3f} ms/launch")
+    assert v1_same, "knn_topk differs from its first design"
+    del old
 
     # phase 3: the main path, streaming mode
     reset_counts()
@@ -701,15 +772,26 @@ def main():
     score_err = max(score_err, float((sc - sc_plain).abs().max()))
     del sc_plain
     score_ms = cuda_ms(lambda: knn_score_cuda(r_tiles, s_tiles, active, block_r=block_r,
-                                              block_s=block_s), reps=5)
+                                              block_s=block_s), reps=10)
     score_plain_ms = cuda_ms(lambda: knn_score_plain(r_tiles, s_tiles, active,
                                                      block_r=block_r, block_s=block_s), reps=2)
     score_bound_ms, score_bound_by = bound(flops, nbytes(r_tiles, s_tiles, active, sc), name)
+    score_ctas = n_rb * -(-block_r // TILE_ROWS) * n_sb * -(-block_s // TILE_ROWS)
     print(f"phase 4 knn_score engine shapes: NR={sc.shape[0]} NS={sc.shape[1]} CTAs "
-          f"{(sc.shape[0] // 64) * (sc.shape[1] // 64)} max|dscore|={score_err:.3e}")
-    print(f"  knn_score kernel {score_ms:.3f} ms/launch, plain {score_plain_ms:.3f} ms, "
-          f"dense matmul {score_library_ms:.3f} ms, bound {score_bound_ms:.3f} ms "
-          f"({score_bound_by})")
+          f"{score_ctas}, {usage_of(usage, '_knn_score_cu_')}, max|dscore|={score_err:.3e}")
+    print(f"  knn_score kernel {score_ms:.3f} ms/launch ({flops / score_ms / 1e9:.1f} TFLOP/s), "
+          f"plain {score_plain_ms:.3f} ms, dense matmul {score_library_ms:.3f} ms, bound "
+          f"{score_bound_ms:.3f} ms ({score_bound_by})")
+    old = knn_score_v1(r_tiles, s_tiles, active, block_r, block_s)
+    torch.cuda.synchronize()
+    v1_score_same = torch.equal(sc, old)
+    v1_score_err = max_abs_err(sc, old)
+    v1_score_ms = cuda_ms(lambda: knn_score_v1(r_tiles, s_tiles, active, block_r, block_s),
+                          reps=5)
+    print(f"  knn_score vs the first design: bit-identical {v1_score_same}, max|d| "
+          f"{v1_score_err:.3e}; first design {v1_score_ms:.3f} ms/launch")
+    assert v1_score_same, "knn_score differs from its first design"
+    del old
     fresh = init_topk(sc.shape[0], K)
     cand = torch.where(sc > 0, sc, float("-inf"))
     cand_ids = torch.arange(sc.shape[1], dtype=torch.int32, device=dev)

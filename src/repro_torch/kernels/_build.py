@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels, load them with ``ctypes``, launch them.
 
-Every ``csrc/*.cu`` is compiled by its own ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, ``build/kernels/<name>_<hash>.so``
-at the repository root.  All sources are compiled together, in parallel,
-at the first use of any kernel, and again whenever a file under ``csrc/``
+Every ``csrc/*.cu`` (and ``csrc/legacy/*.cu``, earlier designs kept for
+comparison) is compiled by its own ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface, ``build/kernels/<name>_<hash>.so`` at the
+repository root.  All sources are compiled together, in parallel, at the
+first use of any kernel, and again whenever a file under ``csrc/``
 changes: the hash covers every file there, headers included.  Each
 library exports ``<name>_launch(..., stream)``, which returns a CUDA error
 code, and ``<name>_error_string(code)``.
@@ -39,23 +40,25 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256()
-    for f in sorted(CSRC.iterdir()):
+    for f in sorted(CSRC.rglob("*")):
         if f.is_file():
-            h.update(f.name.encode() + b"\0" + f.read_bytes())
+            h.update(str(f.relative_to(CSRC)).encode() + b"\0" + f.read_bytes())
     return h.hexdigest()[:16]
 
 
 def build() -> dict[str, tuple[pathlib.Path, str]]:
     """Compile every source whose library for this ``csrc/`` hash is missing.
 
-    Returns {kernel name: (library path, compiler log)}; a log is empty
-    when that library was already built.  Raises if any compile fails."""
+    Returns {kernel name: (library path, compiler log)}; the log is kept
+    beside the library (``.log``) and read back when the library was
+    already built.  Raises if any compile fails."""
     digest = _digest()
     out, running = {}, []
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("legacy/*.cu")):
         lib = BUILD_DIR / f"{src.stem}_{digest}.so"
         if lib.exists():
-            out[src.stem] = (lib, "")
+            log = lib.with_suffix(".log")
+            out[src.stem] = (lib, log.read_text() if log.exists() else "")
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -67,6 +70,7 @@ def build() -> dict[str, tuple[pathlib.Path, str]]:
     for src, lib, tmp, proc in running:
         log, _ = proc.communicate()
         if proc.returncode == 0:
+            lib.with_suffix(".log").write_text(log)
             os.replace(tmp, lib)
             out[src.stem] = (lib, log)
         else:

@@ -10,108 +10,74 @@
 // is all zeros, so the walk stops at the first entry outside [0, T) and
 // the result is unchanged.
 //
-// Where the TPU design does not carry over: the Pallas (block_r, block_s)
-// f32 accumulator is 256 KB at the defaults, beyond a CTA's 227 KB, and one
-// CTA per block pair would leave most of the 132 SMs empty.  So a CTA owns a
-// 64 x 64 sub-tile of one pair (never crossing a pair's edge, so one active
-// list serves it): 256 threads, a 4 x 4 register micro-tile each (rows
-// ty + 16 i, columns tx + 16 j).  It reads the pair's active list itself,
-// stages 32-dim slices of the R and S tiles in shared memory (row pitch 33:
-// no bank conflicts) and accumulates in fp32 FMA (no TF32), then writes its
-// outputs once.  At the engine's shapes (NR = 2048, NS = 10,240, blocks of
-// 256) that is 5,120 CTAs.
+// Design: one CTA per 128 x 128 tile of one block pair (clipped at the
+// pair's edge, so one active list serves it): 16 x 80 = 1,280 CTAs at the
+// engine's shapes (NR 2048, NS 10,240, blocks of 256).  The CTA reads its
+// pair's list into shared memory once, runs the shared mainloop of
+// score_tile.cuh (8 x 8 register micro-tile a thread, k-major staged
+// slices, the next slice's global loads in flight during the FMAs) and
+// writes its tile once.
 //
 // Sums are taken tile by tile in list (ascending) order and dim by dim
-// within a tile, sequentially per output.  The plain version
-// (knn_score/ref.py) sums each tile product in cuBLAS's order and then
-// over tiles, so the two agree within rtol=1e-5, atol=1e-6, not bit for
-// bit.
+// within a tile, one fmaf chain per output, as the first design of this
+// kernel did: the outputs are bit for bit that design's.  The plain version
+// (knn_score/ref.py) sums each tile product in cuBLAS's order and then over
+// tiles, so the two agree within rtol=1e-5, atol=1e-6, not bit for bit.
 //
 // Bound: operations.  2 * 256 * 256 * 128 flop for every active (R block,
 // S block, tile) triple; 25,280 triples at the engine's shapes give
 // 4.24e11 flop, 6.33 ms at the H100 SXM's 67 TFLOP/s fp32.  Bytes (the
 // tile stacks read once, the scores written once) are ~0.59 GB, 0.18 ms.
-// Left for later: no cp.async/TMA pipeline (loads do not overlap the
-// FMAs), each thread's 8 scalar shared-memory reads feed 16 FMAs, and fp32
-// FMAs on the CUDA cores cap it at 67 TFLOP/s.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "score_tile.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;     // a 16 x 16 thread grid
-constexpr int kSub = 64;          // rows and columns of a CTA's sub-tile
-constexpr int kMicro = kSub / 16;  // a thread's 4 x 4 micro-tile
-constexpr int kDepth = 32;        // dims staged per shared-memory step
-constexpr int kPad = kDepth + 1;  // row pitch of the staged slices
+using score_tile::kThreads;
+using score_tile::kTile;
 
 struct Params {
-  const float* r_tiles;  // (T+1, NR, tile)
-  const float* s_tiles;  // (T+1, NS, tile)
-  const int* active;     // (nR, nS, A)
-  float* out;            // (NR, NS)
-  int t1, n_r, n_s, tile, n_sb, a_len, block_r, block_s, sub_r, sub_s;
+  score_tile::Operands op;
+  const int* active;  // (nR, nS, A)
+  float* out;         // (NR, NS)
+  int t1, n_sb, a_len, block_r, block_s, sub_r, sub_s;
 };
 
-__global__ void __launch_bounds__(kThreads) knn_score_kernel(Params p) {
-  __shared__ float rs[kSub * kPad];
-  __shared__ float ss[kSub * kPad];
+__global__ void __launch_bounds__(kThreads, 2) knn_score_kernel(Params p) {
+  extern __shared__ __align__(16) float smem[];
+  float* stage = smem;                                                 // the mainloop's
+  int* alist = reinterpret_cast<int*>(smem + score_tile::kStageBytes / 4);  // a_len entries
 
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int tid = threadIdx.x;
   const int ctas_s = p.n_sb * p.sub_s;
   const int cta_r = blockIdx.x / ctas_s, cta_s = blockIdx.x % ctas_s;
   const int bi = cta_r / p.sub_r, bj = cta_s / p.sub_s;
-  const int r_lo = (cta_r % p.sub_r) * kSub, c_lo = (cta_s % p.sub_s) * kSub;
-  const int nrow = min(kSub, p.block_r - r_lo);
-  const int ncol = min(kSub, p.block_s - c_lo);
+  const int r_lo = (cta_r % p.sub_r) * kTile, c_lo = (cta_s % p.sub_s) * kTile;
+  const int nrow = min(kTile, p.block_r - r_lo);
+  const int ncol = min(kTile, p.block_s - c_lo);
   const int row0 = bi * p.block_r + r_lo;
   const int col0 = bj * p.block_s + c_lo;
-  const unsigned sentinel = (unsigned)(p.t1 - 1);
+
   const int* act = p.active + ((size_t)bi * p.n_sb + bj) * p.a_len;
+  for (int e = tid; e < p.a_len; e += kThreads) alist[e] = act[e];
+  __syncthreads();
+  const int a_live = score_tile::live_tiles(alist, p.a_len, p.t1 - 1);
 
-  float acc[kMicro][kMicro];
-#pragma unroll
-  for (int i = 0; i < kMicro; ++i)
-#pragma unroll
-    for (int j = 0; j < kMicro; ++j) acc[i][j] = 0.f;
-
-  for (int a = 0; a < p.a_len; ++a) {
-    const int t = act[a];
-    if ((unsigned)t >= sentinel) break;
-    const float* rt = p.r_tiles + ((size_t)t * p.n_r + row0) * p.tile;
-    const float* st = p.s_tiles + ((size_t)t * p.n_s + col0) * p.tile;
-    for (int d0 = 0; d0 < p.tile; d0 += kDepth) {
-      for (int e = tid; e < kSub * kDepth; e += kThreads) {
-        const int r = e / kDepth, d = e % kDepth;
-        const bool in = d0 + d < p.tile;
-        rs[r * kPad + d] = (r < nrow && in) ? rt[(size_t)r * p.tile + d0 + d] : 0.f;
-        ss[r * kPad + d] = (r < ncol && in) ? st[(size_t)r * p.tile + d0 + d] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int d = 0; d < kDepth; ++d) {
-        float b[kMicro];
-#pragma unroll
-        for (int j = 0; j < kMicro; ++j) b[j] = ss[(tx + 16 * j) * kPad + d];
-#pragma unroll
-        for (int i = 0; i < kMicro; ++i) {
-          const float av = rs[(ty + 16 * i) * kPad + d];
-#pragma unroll
-          for (int j = 0; j < kMicro; ++j) acc[i][j] = fmaf(av, b[j], acc[i][j]);
-        }
-      }
-      __syncthreads();
-    }
-  }
+  float acc[8][8];
+  score_tile::accumulate(acc, stage, alist, a_live, p.op, row0, nrow, col0, ncol);
 
 #pragma unroll
-  for (int i = 0; i < kMicro; ++i) {
-    const int r = ty + 16 * i;
+  for (int i = 0; i < 8; ++i) {
+    const int r = score_tile::tile_row(i, tid);
+    if (r >= nrow) continue;
+    float* o = p.out + (size_t)(row0 + r) * p.op.n_s + col0;
 #pragma unroll
-    for (int j = 0; j < kMicro; ++j) {
-      const int c = tx + 16 * j;
-      if (r < nrow && c < ncol) p.out[(size_t)(row0 + r) * p.n_s + col0 + c] = acc[i][j];
+    for (int j = 0; j < 8; ++j) {
+      const int c = score_tile::tile_col(j, tid);
+      if (c < ncol) o[c] = acc[i][j];
     }
   }
 }
@@ -121,15 +87,22 @@ __global__ void __launch_bounds__(kThreads) knn_score_kernel(Params p) {
 extern "C" int knn_score_launch(const float* r_tiles, const float* s_tiles, const int* active,
                                 float* out, int t1, int n_r, int n_s, int tile, int n_rb,
                                 int n_sb, int a_len, int block_r, int block_s, void* stream) {
-  if (t1 < 1 || tile < 1 || n_rb < 1 || n_sb < 1 || a_len < 0 || block_r < 1 || block_s < 1 ||
-      n_r != n_rb * block_r || n_s != n_sb * block_s)
+  if (t1 < 1 || tile < 4 || tile % 4 || n_rb < 1 || n_sb < 1 || a_len < 0 || block_r < 1 ||
+      block_s < 1 || n_r != n_rb * block_r || n_s != n_sb * block_s)
     return (int)cudaErrorInvalidValue;
-  const int sub_r = (block_r + kSub - 1) / kSub, sub_s = (block_s + kSub - 1) / kSub;
+  const int sub_r = (block_r + kTile - 1) / kTile, sub_s = (block_s + kTile - 1) / kTile;
   const long long ctas = (long long)n_rb * sub_r * n_sb * sub_s;
   if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  const Params p{r_tiles, s_tiles, active, out, t1, n_r, n_s, tile, n_sb, a_len,
+  const size_t smem = score_tile::kStageBytes + (size_t)a_len * sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(knn_score_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(knn_score_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  const Params p{{r_tiles, s_tiles, n_r, n_s, tile}, active, out, t1, n_sb, a_len,
                  block_r, block_s, sub_r, sub_s};
-  knn_score_kernel<<<(unsigned)ctas, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  knn_score_kernel<<<(unsigned)ctas, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,6 @@
 // The top-k insertion body shared by knn_topk.cu and topk_merge.cu: the
-// warp form of repro/kernels/topk_merge/kernel.py::insert_candidates.
+// warp form of repro/kernels/topk_merge/kernel.py::insert_candidates, and
+// the walk of one row's candidate list built on it.
 //
 // A warp holds one row's descending (score, id) k-state in registers, KS =
 // ceil(k / 32) slots a lane: slot q of lane l is position q * 32 + l.
@@ -61,6 +62,36 @@ __device__ __forceinline__ void insert(float (&s)[KS], int (&id)[KS], int k, flo
       s[q] = prev_s[q];
       id[q] = prev_i[q];
     }
+  }
+}
+
+// Merge a row's m candidates (scores cs[0..m), ids ci[0..m)) into its
+// state, in order: the walk of topk_merge.cu.  32 columns at a time, one a
+// lane, the next chunk's load in flight.  The k-th score never falls, so
+// testing a chunk against the k-th at its start is exact: only the columns
+// that pass (a __ballot_sync) are inserted one by one, in column order,
+// each checked again against the live k-th.  Ids are read only for those.
+template <int KS>
+__device__ __forceinline__ void merge_row(float (&s)[KS], int (&id)[KS], int k, const float* cs,
+                                          const int* ci, int m, int lane) {
+  float kth_v = kth<KS>(s, k);
+  float v = lane < m ? cs[lane] : -INFINITY;
+  for (int c0 = 0; c0 < m; c0 += 32) {
+    const int next = c0 + 32 + lane;
+    const float v_next = next < m ? cs[next] : -INFINITY;
+    const bool pass = v > kth_v;
+    const int cid = pass ? ci[c0 + lane] : -1;
+    unsigned hits = __ballot_sync(kFullMask, pass);
+    while (hits) {
+      const int j = __ffs(hits) - 1;
+      hits &= hits - 1;
+      const float vj = __shfl_sync(kFullMask, v, j);
+      const int idj = __shfl_sync(kFullMask, cid, j);
+      if (!(vj > kth_v)) continue;  // pos would be k: nothing moves
+      insert<KS>(s, id, k, vj, idj, lane);
+      kth_v = kth<KS>(s, k);
+    }
+    v = v_next;
   }
 }
 

@@ -11,13 +11,11 @@
 //
 // Design: one warp per row, its state in registers (k/32 slots a lane,
 // topk_insert.cuh, shared with knn_topk.cu).  The warp walks the row's
-// candidates 32 columns at a time, one column a lane, the next chunk's
-// load in flight.  The k-th score never falls, so testing a chunk against
-// the k-th at the chunk's start is exact: only the columns that pass
-// (a __ballot_sync) are inserted one by one, in column order, each
-// checked again against the live k-th.  Candidate ids are read only for
-// those columns.  Ragged N and M need no padding: rows past N have no
-// warp, and columns past M read as -inf.
+// candidates with topk::merge_row: 32 columns at a time, one column a
+// lane, the next chunk's load in flight; only the columns that beat the
+// chunk-start k-th (a __ballot_sync) are inserted, in column order.
+// Ragged N and M need no padding: rows past N have no warp, and columns
+// past M read as -inf.
 //
 // Bound: bytes.  The candidate scores are read once (N * M * 4 B, 84 MB at
 // N = 2048, M = 10,240), plus the ids of the passing columns and the
@@ -60,28 +58,8 @@ __global__ void __launch_bounds__(kThreads) topk_merge_kernel(Params p) {
     s[q] = pos < p.k ? p.state_s[(size_t)row * p.k + pos] : -INFINITY;
     id[q] = pos < p.k ? p.state_i[(size_t)row * p.k + pos] : -1;
   }
-  const float* cs = p.cand_s + (size_t)row * p.m;
-  const int* ci = p.cand_i + (size_t)row * p.ids_stride;
-  float kth = topk::kth<KS>(s, p.k);
-
-  float v = lane < p.m ? cs[lane] : -INFINITY;
-  for (int c0 = 0; c0 < p.m; c0 += 32) {
-    const int next = c0 + 32 + lane;
-    const float v_next = next < p.m ? cs[next] : -INFINITY;
-    const bool pass = v > kth;
-    const int cid = pass ? ci[c0 + lane] : -1;
-    unsigned hits = __ballot_sync(topk::kFullMask, pass);
-    while (hits) {
-      const int j = __ffs(hits) - 1;
-      hits &= hits - 1;
-      const float vj = __shfl_sync(topk::kFullMask, v, j);
-      const int idj = __shfl_sync(topk::kFullMask, cid, j);
-      if (!(vj > kth)) continue;  // pos would be k: nothing moves
-      topk::insert<KS>(s, id, p.k, vj, idj, lane);
-      kth = topk::kth<KS>(s, p.k);
-    }
-    v = v_next;
-  }
+  topk::merge_row<KS>(s, id, p.k, p.cand_s + (size_t)row * p.m,
+                      p.cand_i + (size_t)row * p.ids_stride, p.m, lane);
 
 #pragma unroll
   for (int q = 0; q < KS; ++q) {

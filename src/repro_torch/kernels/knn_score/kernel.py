@@ -46,6 +46,9 @@ def knn_score_cuda(
     check("r_tiles", r_tiles, torch.float32, (t1, n_r, tile), dev)
     check("s_tiles", s_tiles, torch.float32, (t1, n_s, tile), dev)
     check("active", active, torch.int32, (n_rb, n_sb, active.shape[2]), dev)
+    if tile % 4 or r_tiles.data_ptr() % 16 or s_tiles.data_ptr() % 16:
+        raise ValueError("the kernel reads 16 bytes at a time: tile must be a multiple of 4 "
+                         f"(got {tile}) and r_tiles, s_tiles 16-byte aligned")
 
     out = torch.empty((n_r, n_s), dtype=torch.float32, device=dev)
     launch("knn_score", _ARGTYPES, dev,

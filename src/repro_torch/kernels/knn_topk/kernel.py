@@ -7,6 +7,12 @@ tensors it launches the hand-written kernel of ``../csrc/knn_topk.cu``; on
 CPU tensors it runs the plain version (``ref.knn_topk_plain``).  Nothing
 falls back: a CUDA tensor that the kernel cannot take raises.
 
+The kernel splits the S walk: pass 1 scores and selects on a grid of
+(128-row R tiles) x (P ranges of 128-column tiles), each range from an
+empty state; pass 2 merges the P partial states in S order onto the init
+state.  ``split_ranges`` picks P from the card's SM count.  Both passes
+run in one wrapper call, counted once.
+
 The kernel is built by ``kernels/_build.py`` (``nvcc`` for ``sm_90a``, a
 plain C interface loaded with ``ctypes``) at its first use.
 ``knn_topk_fused.launches`` counts the kernel's launches.
@@ -22,7 +28,26 @@ from repro_torch.kernels.knn_topk.ref import knn_topk_plain
 
 MAX_K = 128
 MAX_BLOCK_R = 256
-_ARGTYPES = (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 10
+TILE_ROWS = 128          # rows of a pass-1 CTA (csrc/score_tile.cuh kTile)
+CTAS_PER_SM = 2          # pass 1's occupancy aim
+_ARGTYPES = (ctypes.c_void_p,) * 15 + (ctypes.c_int,) * 12
+
+
+def split_ranges(n_rb: int, n_sb: int, block_r: int, block_s: int, n_sm: int):
+    """(P ranges, column tiles a range) for pass 1: S cut into runs of
+    128-column tiles.  A CTA takes one R tile and one range, CTAS_PER_SM of
+    them fit an SM, so the time goes as waves x tiles a range; take the run
+    length that minimises it, the longest among equals (fewer partial
+    states to merge)."""
+    r_tiles = n_rb * -(-block_r // TILE_ROWS)
+    n_ct = n_sb * -(-block_s // TILE_ROWS)
+    slots = CTAS_PER_SM * n_sm
+
+    def cost(run):
+        return -(-r_tiles * -(-n_ct // run) // slots) * run, -run
+
+    run = min(range(1, n_ct + 1), key=cost)
+    return -(-n_ct // run), run
 
 
 def knn_topk_fused(
@@ -39,7 +64,14 @@ def knn_topk_fused(
     block_s: int = 256,
 ):
     """((NR, k) scores, (NR, k) ids, (nR, 1) MinPruneScore per R block).
-    NR % block_r == NS % block_s == 0 (the callers pad)."""
+    NR % block_r == NS % block_s == 0 (the callers pad).
+
+    Contract of the split walk: ``thr`` is at most the initial k-th score of
+    every row < ``nr_valid`` (the init state's MinPruneScore, as every
+    caller passes), and rows >= ``nr_valid`` are padding that is never
+    offered (empty R rows score 0), so they stay as initialised.  Under it,
+    the split walk gives the sequential walk's outputs bit for bit (the
+    kernel's first, sequential design: ``csrc/legacy/knn_topk_v1.cu``)."""
     if r_tiles.device.type == "cpu":
         return knn_topk_plain(r_tiles, s_tiles, active, s_valid, s_ids, init_scores,
                               init_ids, thr=thr, nr_valid=nr_valid,
@@ -73,15 +105,26 @@ def knn_topk_fused(
     check("init_ids", init_ids, torch.int32, (n_r, k), dev)
     check("thr", thr.reshape(1, 1), torch.float32, (1, 1), dev)
     check("nr_valid", nr_valid.reshape(1), torch.int32, (1,), dev)
+    if tile % 4 or r_tiles.data_ptr() % 16 or s_tiles.data_ptr() % 16:
+        raise ValueError("the kernel reads 16 bytes at a time: tile must be a multiple of 4 "
+                         f"(got {tile}) and r_tiles, s_tiles 16-byte aligned")
 
+    n_ranges, range_len = split_ranges(n_rb, n_sb, block_r, block_s,
+                                       torch.cuda.get_device_properties(dev).multi_processor_count)
+    part_s = torch.empty((n_r, n_ranges, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((n_r, n_ranges, k), dtype=torch.int32, device=dev)
+    offered = torch.empty((n_rb * -(-block_r // TILE_ROWS), n_ranges), dtype=torch.int32,
+                          device=dev)
     out_s = torch.empty((n_r, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((n_r, k), dtype=torch.int32, device=dev)
     thr_out = torch.empty((n_rb, 1), dtype=torch.float32, device=dev)
     launch("knn_topk", _ARGTYPES, dev,
            r_tiles.data_ptr(), s_tiles.data_ptr(), active.data_ptr(), s_valid.data_ptr(),
            s_ids.data_ptr(), init_scores.data_ptr(), init_ids.data_ptr(), thr.data_ptr(),
-           nr_valid.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), thr_out.data_ptr(),
-           t1, n_r, n_s, tile, n_rb, n_sb, active.shape[2], k, block_r, block_s)
+           nr_valid.data_ptr(), part_s.data_ptr(), part_i.data_ptr(), offered.data_ptr(),
+           out_s.data_ptr(), out_i.data_ptr(), thr_out.data_ptr(),
+           t1, n_r, n_s, tile, n_rb, n_sb, active.shape[2], k, block_r, block_s,
+           n_ranges, range_len)
     knn_topk_fused.launches += 1
     return out_s, out_i, thr_out
 

@@ -1,0 +1,48 @@
+"""Launchers of the first CUDA designs of knn_topk and knn_score
+(``csrc/legacy/*_v1.cu``: one CTA per 256-row group walking S in order;
+a CTA per 64 x 64 sub-tile with a 4 x 4 micro-tile).  On no path of the
+port: ``chip_smoke.py`` runs them once at the engine's shapes to show that
+the present kernels give bit for bit their outputs.  They take the
+arguments of ``knn_topk_fused`` and ``knn_score_cuda`` on CUDA tensors that
+those wrappers have already checked.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels._build import launch
+
+_TOPK_ARGTYPES = (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 10
+_SCORE_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 9
+
+
+def knn_topk_v1(r_tiles, s_tiles, active, s_valid, s_ids, init_scores, init_ids, thr,
+                nr_valid, block_r, block_s):
+    """The sequential design's ((NR, k) scores, (NR, k) ids, (nR, 1) thr)."""
+    dev = r_tiles.device
+    t1, n_r, tile = r_tiles.shape
+    n_s, k = s_tiles.shape[1], init_scores.shape[1]
+    n_rb, n_sb = n_r // block_r, n_s // block_s
+    out_s = torch.empty((n_r, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((n_r, k), dtype=torch.int32, device=dev)
+    thr_out = torch.empty((n_rb, 1), dtype=torch.float32, device=dev)
+    launch("knn_topk_v1", _TOPK_ARGTYPES, dev,
+           r_tiles.data_ptr(), s_tiles.data_ptr(), active.data_ptr(), s_valid.data_ptr(),
+           s_ids.data_ptr(), init_scores.data_ptr(), init_ids.data_ptr(), thr.data_ptr(),
+           nr_valid.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), thr_out.data_ptr(),
+           t1, n_r, n_s, tile, n_rb, n_sb, active.shape[2], k, block_r, block_s)
+    return out_s, out_i, thr_out
+
+
+def knn_score_v1(r_tiles, s_tiles, active, block_r, block_s):
+    """The 64 x 64 sub-tile design's (NR, NS) scores."""
+    dev = r_tiles.device
+    t1, n_r, tile = r_tiles.shape
+    n_s = s_tiles.shape[1]
+    out = torch.empty((n_r, n_s), dtype=torch.float32, device=dev)
+    launch("knn_score_v1", _SCORE_ARGTYPES, dev,
+           r_tiles.data_ptr(), s_tiles.data_ptr(), active.data_ptr(), out.data_ptr(),
+           t1, n_r, n_s, tile, n_r // block_r, n_s // block_s, active.shape[2], block_r, block_s)
+    return out

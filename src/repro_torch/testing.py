@@ -7,13 +7,20 @@ positions whose reference scores tie within that tolerance, where the id
 scores only: which of the tied candidates made the cut depends on the
 last ulp.
 
+``with_zero_rows`` and ``doubled`` make the fused join kernel's edge
+cases: an R block that offers nothing, and equal scores in two S ranges.
+
 The LM kernels (flash_attn, wkv) are held to their plain versions by
 ``flash_close`` and ``wkv_close``, one tolerance table for every caller.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
+
+from repro_torch.sparse.format import SparseBatch
 
 
 def assert_topk_close(got_s, got_i, ref_s, ref_i, rtol=1e-5, atol=1e-6) -> float:
@@ -38,6 +45,22 @@ def assert_topk_close(got_s, got_i, ref_s, ref_i, rtol=1e-5, atol=1e-6) -> float
                     f"(scores {ref_s[r].tolist()})")
     finite = np.isfinite(ref_s)
     return float(np.abs(got_s[finite] - ref_s[finite]).max(initial=0.0))
+
+
+def with_zero_rows(batch: SparseBatch, lo: int, hi: int) -> SparseBatch:
+    """A copy of ``batch`` whose rows [lo, hi) have all weights 0: they keep
+    their tile occupancy but score 0 against everything, so no candidate
+    is ever offered to them."""
+    values = batch.values.clone()
+    values[lo:hi] = 0.0
+    return dataclasses.replace(batch, values=values)
+
+
+def doubled(batch: SparseBatch) -> SparseBatch:
+    """``batch`` followed by a copy of itself: row j + N ties row j."""
+    return SparseBatch(indices=torch.cat([batch.indices] * 2),
+                       values=torch.cat([batch.values] * 2),
+                       nnz=torch.cat([batch.nnz] * 2), dim=batch.dim)
 
 
 # The LM kernels against their plain versions (rtol, atol).  flash_attn f32

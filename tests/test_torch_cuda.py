@@ -38,7 +38,13 @@ from repro_torch.models.attention import _causal_mask, _sdpa  # noqa: E402
 from repro_torch.models.rwkv6 import _chunked_wkv  # noqa: E402
 from repro_torch.sparse.datagen import synthetic_sparse  # noqa: E402
 from repro_torch.sparse.format import tile_occupancy  # noqa: E402
-from repro_torch.testing import assert_topk_close, flash_close, wkv_close  # noqa: E402
+from repro_torch.testing import (  # noqa: E402
+    assert_topk_close,
+    doubled,
+    flash_close,
+    with_zero_rows,
+    wkv_close,
+)
 
 RTOL, ATOL = 1e-5, 1e-6
 pytestmark = pytest.mark.cuda
@@ -51,9 +57,30 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(dev, nr, ns, dim, br, bs, k, masked):
+def _inputs(dev, nr, ns, dim, br, bs, k, masked, variant=None):
+    """A fused call's (args, kwargs).  ``variant``: "ties" (S's second half
+    repeats its first: equal scores in two S ranges), "warm" (a warm state
+    and its MinPruneScore from a first pass over other S rows), or
+    "warm-no-offer" (that, with R block 1 zeroed: it offers nothing)."""
     R = synthetic_sparse(nr, dim=dim, nnz_mean=12, nnz_std=4, seed=nr + ns).to(dev)
-    S = synthetic_sparse(ns, dim=dim, nnz_mean=12, nnz_std=4, seed=nr * ns).to(dev)
+    if variant == "ties":
+        S = doubled(synthetic_sparse(ns // 2, dim=dim, nnz_mean=12, nnz_std=4, seed=7)).to(dev)
+    else:
+        S = synthetic_sparse(ns, dim=dim, nnz_mean=12, nnz_std=4, seed=nr * ns).to(dev)
+    state = init_topk(nr, k, device=dev)
+    if variant in ("warm", "warm-no-offer"):
+        first = synthetic_sparse(ns, dim=dim, nnz_mean=12, nnz_std=4, seed=5).to(dev)
+        f_tiles = _pad_rows(dense_tiles_with_sentinel(first, 128), bs)
+        r_tiles = _pad_rows(dense_tiles_with_sentinel(R, 128), br)
+        f_active = torch.as_tensor(active_lists(tile_occupancy(R, 128).cpu().numpy(),
+                                                tile_occupancy(first, 128).cpu().numpy(), br, bs),
+                                   device=dev)
+        fv, fi = column_meta(ns, f_tiles.shape[1], s_offset=ns, device=dev)
+        w_s, w_i, _ = knn_topk_plain(r_tiles, f_tiles, f_active, fv, fi,
+                                     *pad_state(state, r_tiles.shape[1]), block_r=br, block_s=bs)
+        state = TopKState(w_s[:nr], w_i[:nr])
+        if variant == "warm-no-offer":
+            R = with_zero_rows(R, br, 2 * br)
     r_tiles = _pad_rows(dense_tiles_with_sentinel(R, 128), br)
     s_tiles = _pad_rows(dense_tiles_with_sentinel(S, 128), bs)
     active = torch.as_tensor(active_lists(tile_occupancy(R, 128).cpu().numpy(),
@@ -61,7 +88,6 @@ def _inputs(dev, nr, ns, dim, br, bs, k, masked):
                              device=dev)
     s_valid = np.random.default_rng(ns).random(ns) > 0.3 if masked else None
     valid, ids = column_meta(ns, s_tiles.shape[1], s_valid=s_valid, device=dev)
-    state = init_topk(nr, k, device=dev)
     init_s, init_i = pad_state(state, r_tiles.shape[1])
     args = (r_tiles, s_tiles, active, valid, ids, init_s, init_i)
     kwargs = dict(thr=min_prune_score(state).reshape(1, 1), block_r=br, block_s=bs,
@@ -69,14 +95,18 @@ def _inputs(dev, nr, ns, dim, br, bs, k, masked):
     return args, kwargs
 
 
-@pytest.mark.parametrize("nr,ns,dim,br,bs,k,masked", [
-    (70, 90, 640, 64, 64, 5, False),        # padded rows, ragged S block
-    (48, 100, 512, 16, 32, 12, False),      # k % 8 != 0, small blocks
-    (300, 1100, 512, 256, 256, 128, False),  # k = 128, ragged S block
-    (40, 300, 512, 32, 96, 7, True),        # masked columns, chunk-ragged block_s
+@pytest.mark.parametrize("nr,ns,dim,br,bs,k,masked,variant", [
+    (70, 90, 640, 64, 64, 5, False, None),        # padded rows, ragged S block
+    (48, 100, 512, 16, 32, 12, False, None),      # k % 8 != 0, small blocks
+    (300, 1100, 512, 256, 256, 128, False, None),  # k = 128, ragged S block, 5 ranges
+    (40, 300, 512, 32, 96, 7, True, None),        # masked columns, tile-ragged block_s
+    (70, 256, 640, 64, 32, 7, False, "ties"),     # equal scores in two of 8 S ranges
+    (300, 1024, 512, 256, 128, 128, False, "ties"),  # k = 128, ties, 8 ranges
+    (100, 320, 1024, 32, 64, 5, False, "warm-no-offer"),  # R block 1 offers nothing
+    (200, 600, 1024, 104, 256, 5, False, "warm"),  # block_r 104, a seeded warm state
 ])
-def test_kernel_matches_plain(cuda, nr, ns, dim, br, bs, k, masked):
-    args, kwargs = _inputs(cuda, nr, ns, dim, br, bs, k, masked)
+def test_kernel_matches_plain(cuda, nr, ns, dim, br, bs, k, masked, variant):
+    args, kwargs = _inputs(cuda, nr, ns, dim, br, bs, k, masked, variant)
     before = knn_topk_fused.launches
     got = knn_topk_fused(*args, **kwargs)
     torch.cuda.synchronize()
@@ -86,6 +116,23 @@ def test_kernel_matches_plain(cuda, nr, ns, dim, br, bs, k, masked):
                       want[1].cpu().numpy(), RTOL, ATOL)
     np.testing.assert_allclose(got[2].cpu().numpy(), want[2].cpu().numpy(),
                                rtol=RTOL, atol=ATOL)
+    if variant == "warm-no-offer":   # block 1 kept the seed threshold
+        assert float(got[2][1]) == float(kwargs["thr"])
+        assert torch.equal(got[0][br:2 * br], args[5][br:2 * br])
+        # its seed's k-th scores lie above thr: the case tells "no offer" apart
+        assert float(args[5][br:2 * br, -1].min()) > float(kwargs["thr"])
+
+
+def test_kernels_repeat_bit_for_bit(cuda):
+    """Two launches of each join kernel give bit-equal outputs: no atomics,
+    one summation order."""
+    args, kwargs = _inputs(cuda, 300, 1100, 512, 256, 128, 16, False, "warm")
+    a, b = knn_topk_fused(*args, **kwargs), knn_topk_fused(*args, **kwargs)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    r_tiles, s_tiles, active = args[:3]
+    sa = knn_score_cuda(r_tiles, s_tiles, active, block_r=256, block_s=128)
+    sb = knn_score_cuda(r_tiles, s_tiles, active, block_r=256, block_s=128)
+    assert torch.equal(sa, sb)
 
 
 def test_kernel_rejects_bad_inputs(cuda):
@@ -96,6 +143,13 @@ def test_kernel_rejects_bad_inputs(cuda):
         knn_topk_fused(*args, **dict(kwargs, block_r=512))
     with pytest.raises(ValueError):
         knn_topk_fused(args[0], args[1].cpu(), *args[2:], **kwargs)
+    with pytest.raises(ValueError, match="16 bytes"):   # tile 126: not a multiple of 4
+        knn_topk_fused(args[0][..., :126].contiguous(), args[1][..., :126].contiguous(),
+                       *args[2:], **kwargs)
+    shifted = torch.empty(args[0].numel() + 1, device=cuda)[1:].view(args[0].shape)
+    shifted.copy_(args[0])
+    with pytest.raises(ValueError, match="16 bytes"):   # r_tiles not 16-byte aligned
+        knn_topk_fused(shifted, *args[1:], **kwargs)
 
 
 def test_join_modes_on_card_match_cpu(cuda):
@@ -133,6 +187,7 @@ def _score_inputs(dev, nr, ns, dim, tile, br, bs):
     (32, 32, 512, 256, 32, 32),      # tile 256
     (16, 200, 1024, 128, 16, 64),    # tall-thin
     (200, 300, 1024, 128, 104, 24),  # block 104, ragged S
+    (130, 250, 1024, 128, 104, 96),  # block_r 104, block_s 96, NS not a multiple of 128
     (300, 700, 2000, 128, 256, 256),
 ])
 def test_knn_score_kernel_matches_plain(cuda, nr, ns, dim, tile, br, bs):
@@ -203,6 +258,9 @@ def test_score_and_merge_wrappers_reject_bad_inputs(cuda):
         knn_score_cuda(r_tiles, s_tiles, active, block_r=48, block_s=64)
     with pytest.raises(ValueError):   # contiguity
         knn_score_cuda(r_tiles, s_tiles.transpose(1, 2).contiguous().transpose(1, 2),
+                       active, **kw)
+    with pytest.raises(ValueError, match="16 bytes"):   # tile 126: not a multiple of 4
+        knn_score_cuda(r_tiles[..., :126].contiguous(), s_tiles[..., :126].contiguous(),
                        active, **kw)
     ss, si, cs, ci = _merge_inputs(cuda, 0, 32, 5, 40, False)
     with pytest.raises(ValueError):

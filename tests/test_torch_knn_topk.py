@@ -27,13 +27,14 @@ from repro_torch.kernels.knn_score.ops import (  # noqa: E402
     active_lists,
     dense_tiles_with_sentinel,
 )
-from repro_torch.kernels.knn_topk.kernel import knn_topk_fused  # noqa: E402
+from repro_torch.kernels.knn_score.ref import knn_score_plain  # noqa: E402
+from repro_torch.kernels.knn_topk.kernel import knn_topk_fused, split_ranges  # noqa: E402
 from repro_torch.kernels.knn_topk.ops import column_meta, knn_topk, pad_state  # noqa: E402
 from repro_torch.kernels.knn_topk.ref import knn_topk_plain  # noqa: E402
 from repro_torch.kernels.topk_merge.kernel import insert_candidates  # noqa: E402
 from repro_torch.sparse.datagen import synthetic_sparse  # noqa: E402
 from repro_torch.sparse.format import tile_occupancy  # noqa: E402
-from repro_torch.testing import assert_topk_close  # noqa: E402
+from repro_torch.testing import assert_topk_close, doubled, with_zero_rows  # noqa: E402
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -176,3 +177,111 @@ def test_knn_topk_fused_rejects_other_devices():
     args = [torch.zeros(2, 8, 4, device="meta")] + [None] * 6
     with pytest.raises(ValueError):
         knn_topk_fused(*args)
+
+
+def _split_case(variant, nr=70, ns=128, dim=512, br=32, bs=32, k=7):
+    """(torch args, jax args) of one fused call, each a case of the split
+    walk: "plain"; "ties" (S's second half repeats its first, so equal
+    scores sit in two S ranges); "warm-no-offer" (a warm state and its
+    MinPruneScore from a first pass, and R block 1 zeroed, so it offers
+    nothing and keeps its finite seed)."""
+    R = synthetic_sparse(nr, dim=dim, nnz_mean=12, nnz_std=4, seed=nr + ns)
+    if variant == "ties":
+        S = doubled(synthetic_sparse(ns // 2, dim=dim, nnz_mean=12, nnz_std=4, seed=7))
+    else:
+        S = synthetic_sparse(ns, dim=dim, nnz_mean=12, nnz_std=4, seed=nr * ns)
+    state = init_topk(nr, k, device="cpu")
+    if variant == "warm-no-offer":
+        first = synthetic_sparse(ns, dim=dim, nnz_mean=12, nnz_std=4, seed=5)
+        f_tiles = _pad_rows(dense_tiles_with_sentinel(first, 128), bs)
+        r_tiles = _pad_rows(dense_tiles_with_sentinel(R, 128), br)
+        f_active = torch.from_numpy(active_lists(tile_occupancy(R, 128).numpy(),
+                                                 tile_occupancy(first, 128).numpy(), br, bs))
+        fv, fi = column_meta(ns, f_tiles.shape[1], s_offset=ns, device="cpu")
+        w_s, w_i, _ = knn_topk_plain(r_tiles, f_tiles, f_active, fv, fi,
+                                     *pad_state(state, r_tiles.shape[1]), block_r=br, block_s=bs)
+        state = TopKState(w_s[:nr], w_i[:nr])
+        R = with_zero_rows(R, br, 2 * br)
+    r_tiles = _pad_rows(dense_tiles_with_sentinel(R, 128), br)
+    s_tiles = _pad_rows(dense_tiles_with_sentinel(S, 128), bs)
+    active = torch.from_numpy(active_lists(tile_occupancy(R, 128).numpy(),
+                                           tile_occupancy(S, 128).numpy(), br, bs))
+    valid, ids = column_meta(ns, s_tiles.shape[1], device="cpu")
+    init_s, init_i = pad_state(state, r_tiles.shape[1])
+    thr = min_prune_score(state).reshape(1, 1)
+    nrv = torch.full((1,), nr, dtype=torch.int32)
+    torch_args = (r_tiles, s_tiles, active, valid, ids, init_s, init_i, thr, nrv)
+    return torch_args, tuple(jnp.asarray(a.numpy()) for a in torch_args)
+
+
+def _split_walk(torch_args, br, bs, n_ranges, unit):
+    """The fused kernel's two passes in plain form: S cut into ``n_ranges``
+    runs of ``unit``-column tiles (a divisor of block_s: a range may start
+    inside an S block), each walked by ``knn_topk_plain`` from an empty state
+    seeded with thr_in, its threshold rising after each tile; the partial
+    states inserted in range order onto the init state; thr_out = min over
+    rows < nr_valid of the final k-th score where the R block offered
+    anything (some positive valid score beats thr_in), else thr_in."""
+    r_tiles, s_tiles, active, valid, ids, init_s, init_i, thr, nrv = torch_args
+    n_units = s_tiles.shape[1] // unit
+    per = -(-n_units // n_ranges)
+    act_u = active.repeat_interleave(bs // unit, dim=1)   # each tile keeps its block's list
+    out_s, out_i = init_s, init_i
+    for u0 in range(0, n_units, per):
+        u1 = min(n_units, u0 + per)
+        cols = slice(u0 * unit, u1 * unit)
+        p_s, p_i, _ = knn_topk_plain(
+            r_tiles, s_tiles[:, cols], act_u[:, u0:u1], valid[:, cols], ids[:, cols],
+            torch.full_like(init_s, float("-inf")), torch.full_like(init_i, -1),
+            thr=thr, nr_valid=nrv, block_r=br, block_s=unit)
+        out_s, out_i = insert_candidates(out_s, out_i, p_s, p_i)
+    scores = knn_score_plain(r_tiles, s_tiles, active, block_r=br, block_s=bs)
+    ok = (scores > 0) & (valid > 0) & (scores > thr)
+    offered = ok.reshape(-1, br * scores.shape[1]).any(dim=1)
+    row_ok = torch.arange(out_s.shape[0]) < nrv
+    kth = torch.where(row_ok, out_s[:, -1], float("inf")).reshape(-1, br).min(dim=1).values
+    return out_s, out_i, torch.where(offered, kth, thr.reshape(()))[:, None]
+
+
+@pytest.mark.parametrize("variant", ["plain", "ties", "warm-no-offer"])
+@pytest.mark.parametrize("n_ranges,unit", [
+    (1, 32), (2, 32), (4, 32),   # whole S blocks of 32 columns; 4: one block a range
+    (3, 16), (8, 16),            # half-block tiles: ranges of 3, 3, 2 start inside blocks
+])
+def test_split_walk_merged_in_s_order_is_the_sequential_walk(variant, n_ranges, unit):
+    """The algebra of the fused kernel's S split: ranges walked apart and
+    merged in S order give the sequential walk's state bit for bit (rows <
+    nr_valid), ties and thr_out included, and the JAX reference's within
+    rtol=1e-5, atol=1e-6."""
+    br, bs, nr = 32, 32, 70
+    torch_args, jax_args = _split_case(variant, nr=nr, br=br, bs=bs)
+    kw = dict(thr=torch_args[7], nr_valid=torch_args[8], block_r=br, block_s=bs)
+    want = knn_topk_plain(*torch_args[:7], **kw)
+    got = _split_walk(torch_args, br, bs, n_ranges, unit)
+    assert torch.equal(got[0][:nr], want[0][:nr]) and torch.equal(got[1][:nr], want[1][:nr])
+    assert torch.equal(got[2], want[2])
+    ref = knn_topk_ref(*jax_args[:7], thr=jax_args[7], nr_valid=jax_args[8],
+                       block_r=br, block_s=bs)
+    assert_topk_close(got[0][:nr].numpy(), got[1][:nr].numpy(), np.asarray(ref[0])[:nr],
+                      np.asarray(ref[1])[:nr], RTOL, ATOL)
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(ref[2]), rtol=RTOL, atol=ATOL)
+    if variant == "ties":       # a row holds both copies of one S row: a tie across ranges
+        ids = want[1][:nr]
+        assert bool(((ids[:, :, None] == ids[:, None, :] + 64) & (ids[:, None, :] >= 0)).any())
+    if variant == "warm-no-offer":   # block 1 kept its seed; the others rose above it
+        thr_in = float(torch_args[7])
+        assert np.isfinite(thr_in) and float(want[2][1]) == thr_in
+        assert float(want[2][0]) > thr_in and float(want[2][2]) > thr_in
+        # block 1's seeded k-th scores lie above thr_in: "no offer" is told apart
+        assert float(torch_args[5][br:2 * br, -1].min()) > thr_in
+
+
+@pytest.mark.parametrize("n_rb,n_sb,block_r,block_s,n_sm,want", [
+    (8, 40, 256, 256, 132, (16, 5)),   # the engine's shapes: 16 x 16 CTAs, one wave of 264
+    (1, 8, 256, 256, 132, (16, 1)),    # streaming: one 128-column tile a range
+    (1, 1, 64, 64, 132, (1, 1)),       # one S block of one tile: P = 1
+    (40, 40, 256, 256, 132, (16, 5)),  # 80 R tiles: 1,280 CTAs of 5 tiles
+    (1, 41, 256, 256, 4, (4, 21)),     # ragged: the last range holds 19 tiles
+])
+def test_split_ranges(n_rb, n_sb, block_r, block_s, n_sm, want):
+    assert split_ranges(n_rb, n_sb, block_r, block_s, n_sm) == want
