@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds the five CUDA kernels of src/repro_torch/kernels/csrc (knn_topk,
-knn_score, topk_merge, flash_attn, wkv) and the first designs of knn_topk
-and knn_score kept in csrc/legacy (one nvcc each, all in parallel),
-then, at the paper's synthetic setting (configs/paper_knn.py "synthetic-10k":
+knn_score, topk_merge, flash_attn, wkv) and the first designs of knn_topk,
+knn_score and flash_attn's bf16 path kept in csrc/legacy (one nvcc each,
+all in parallel), then, at the paper's synthetic setting
+(configs/paper_knn.py "synthetic-10k":
 n_r = n_s = 10,000, dim 10,000, mean nnz 120, k = 5, tile 128, r_block =
 s_block = 2048):
 
@@ -20,7 +21,10 @@ s_block = 2048):
            inputs (csrc/legacy/), which must be equal bit for bit;
   phase 2  the main path, cached mode: SparseKNNIndex.build + two queries,
            one kernel launch per R block, 256 rows checked against a float64
-           top-k computed with scipy.sparse;
+           top-k computed with scipy.sparse; then two small joins (cached
+           and streaming) held against the CPU path: k = 150, which takes
+           the score and merge kernels instead of the fused one, and tile
+           126, whose dense tiles are padded to 128;
   phase 3  the main path, streaming mode: knn_join on 2048 rows, one launch
            per S block, equal to phase 2's rows;
   phase 4  knn_score and topk_merge against their plain versions on the
@@ -33,18 +37,24 @@ s_block = 2048):
            phase 2's query and to the float64 rows;
   phase 6  merge_topk_states: S split at row 5,000, both halves queried
            through a cached index each and merged; equal to phase 2's
-           query, and the kernel's merge equal to the plain body;
+           query, and the kernel's merge equal to the plain body; then
+           merge_topk_states at k = 200 (the large-k kernel) on 10,000
+           rows, bit-identical to the plain body, timed;
 
 and, at the widths of models the repo supports (S = 4096):
 
   phase 7  flash_attn against its plain version (edge cases: causal or
-           not, window, bf16, Sq != Skv, ragged 96, GQA g = 1, 2, 8,
-           hd 256), then qwen3-0.6b (H 16, KVH 8, hd 128, causal, B 2)
+           not, window, bf16 at every head width, Sq != Skv, Sq < 16,
+           ragged 96, GQA g = 1, 2, 8, 10, hd 256), the bf16 kernel's
+           tensor-core instructions (HMMA/HGMMA in cuobjdump -sass, which
+           must be nonzero) and ptxas's registers and spills per head
+           width, then qwen3-0.6b (H 16, KVH 8, hd 128, causal, B 2)
            and recurrentgemma-2b (H 10, KVH 1, hd 256, window 2048, B 1)
-           in f32 and bf16, timed beside scaled_dot_product_attention,
-           with the bf16 check's readings for three planted faults (each
-           must fail it); then the op flash_sdpa at both widths, the main
-           path, against the model's _sdpa with _causal_mask (f32);
+           in f32 and bf16, timed beside scaled_dot_product_attention
+           and, in bf16, beside the first (fp32-FMA) bf16 design, with the
+           bf16 check's readings for three planted faults (each must fail
+           it); then the op flash_sdpa at both widths, the main path,
+           against the model's _sdpa with _causal_mask (f32);
   phase 8  wkv against its plain version (edge cases: the reference
            tests' shapes, ragged T, strong decay, bf16), then rwkv6-3b
            (B 2, T 4096, H 40, K 64, chunk 128), timed; then the op wkv,
@@ -55,13 +65,15 @@ Every flash_attn and wkv comparison goes through repro_torch.testing
 prints the largest share of its tolerance that any element used.
 
 Prints the card's name and power limit, the build time, each phase's
-numbers, one JSON line describing all five kernels, and as its last line
+numbers, one JSON line describing all five kernels (flash_attn twice: its
+f32 kernel and its bf16 tensor-core kernel), and as its last line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero; with
 no CUDA device it exits 1 and prints no result.
 """
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -181,6 +193,45 @@ def phase1_edge_cases(dev):
     return worst
 
 
+def phase2_large_k_and_odd_tile(dev):
+    """Two small joins, cached and streaming, against the CPU path: k = 150
+    (over the fused kernel's 128 slots, so the score and merge kernels run
+    in its place) and tile 126 (dense tiles padded to 128).  The launches of
+    the three join kernels must show the route; returns the worst max
+    |Δscore|."""
+    from repro_torch.core.blocknl import knn_join
+    from repro_torch.core.engine import JoinSpec, SparseKNNIndex
+    from repro_torch.kernels.knn_score.kernel import knn_score_cuda
+    from repro_torch.kernels.knn_topk.kernel import knn_topk_fused
+    from repro_torch.kernels.topk_merge.kernel import topk_merge_cuda
+    from repro_torch.sparse.datagen import synthetic_sparse
+    from repro_torch.testing import assert_topk_close
+
+    R = synthetic_sparse(600, dim=2000, nnz_mean=40, seed=2)
+    S = synthetic_sparse(2000, dim=2000, nnz_mean=40, seed=3)
+    counters = (knn_topk_fused, knn_score_cuda, topk_merge_cuda)
+    runs = -(-600 // 256) * (1 + -(-2000 // 512))   # R blocks cached, then pairs streaming
+    worst = 0.0
+    for k, tile in ((150, TILE), (K, 126)):
+        kw = dict(algorithm="iib", r_block=256, s_block=512, tile=tile, use_kernel=True)
+        spec = JoinSpec(k=k, **kw)
+        before = [fn.launches for fn in counters]
+        cached = SparseKNNIndex.build(S, spec).query(R)
+        streamed = knn_join(R, S, k, **kw)
+        torch.cuda.synchronize()
+        launched = [fn.launches - b for fn, b in zip(counters, before)]
+        assert launched == ([0, runs, runs] if k > 128 else [runs, 0, 0]), (k, tile, launched)
+        cpu = SparseKNNIndex.build(S, spec, device="cpu").query(R)
+        errs = [assert_topk_close(got.scores.cpu(), got.ids.cpu(), cpu.scores, cpu.ids, RTOL, ATOL)
+                for got in (cached.state, streamed)]
+        assert cached.scores.shape == streamed.scores.shape == (600, k)
+        worst = max(worst, *errs)
+        print(f"phase 2 k={k} tile={tile}: cached and streaming vs the CPU path max|dscore|="
+              f"{max(errs):.3e}; launches knn_topk {launched[0]} knn_score {launched[1]} "
+              f"topk_merge {launched[2]}")
+    return worst
+
+
 def scipy_topk(R, S, rows, k):
     """float64 top-k of the sampled R rows against all of S (scipy.sparse)."""
     import scipy.sparse as sp
@@ -233,6 +284,26 @@ def usage_of(usage, part):
         return f"ptxas usage of {part} not found"
     regs, st, ld = hits[0]
     return f"{regs} registers, spills {st} B stored / {ld} B loaded"
+
+
+def sass_mma_counts(lib, part):
+    """{function: HMMA + HGMMA instructions} for the functions of the
+    library ``lib`` whose name holds ``part``, read from ``cuobjdump -sass``
+    (the toolkit's); raises if cuobjdump is missing or fails."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            if part in fn:
+                counts[fn] = 0
+        elif fn in counts and re.search(r"\bH(?:G)?MMA\b", line):
+            counts[fn] += 1
+    return counts
 
 
 def max_abs_err(got, want):
@@ -309,6 +380,8 @@ def phase4_merge_cases(dev):
         (256, 16, 50, False, "neginf"),
         (40, 128, 200, True, "mixed"),
         (2048, 5, 10_240, True, "mixed"),  # the unfused path's shapes
+        (64, 150, 500, True, "ties"),      # k > 128: the large-k kernel
+        (20, 1000, 3000, False, "mixed"),
     ]
     for n, k, m, shared, kind in cases:
         args = merge_inputs(dev, n + m, n, k, m, shared, kind)
@@ -365,6 +438,14 @@ def phase7_edge_cases(dev):
         (4, 2, 160, 160, 256, True, 0, f32),       # hd 256
         (2, 1, 300, 300, 256, True, 128, bf16),    # hd 256, window, bf16
         (2, 2, 128, 64, 32, True, 16, f32),        # late rows see no key: zeros
+        # the bf16 tensor-core kernel at every head width and edge
+        (2, 2, 128, 128, 32, True, 0, bf16),       # hd 32
+        (4, 2, 200, 200, 128, True, 0, bf16),      # hd 128, g 2
+        (10, 1, 130, 130, 128, True, 0, bf16),     # g 10
+        (4, 2, 100, 77, 64, False, 0, bf16),       # non-causal, Skv not a multiple of 8 or 16
+        (3, 3, 9, 9, 128, True, 0, bf16),          # Sq < 16
+        (2, 2, 128, 64, 64, True, 16, bf16),       # late rows see no key: zeros
+        (2, 1, 200, 200, 128, True, 100, bf16),    # window edge inside a q tile
     ]
     worst = {f32: (0.0, 0.0), bf16: (0.0, 0.0)}
     for bh, kvh, sq, skv, hd, causal, window, dtype in cases:
@@ -415,10 +496,11 @@ def phase7_planted_faults(q, k, v, window, want):
 def phase7_full_width(dev, name, model, dtype):
     """Kernel against plain at one model's width, with timings: a dict of
     the kernel line's numbers for this case.  In bf16, the check's readings
-    for planted faults too."""
+    for planted faults too, and the first bf16 design's check and time."""
     from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda
     from repro_torch.kernels.flash_attn.ops import heads_first
     from repro_torch.kernels.flash_attn.ref import flash_attention_plain
+    from repro_torch.kernels.legacy import flash_attn_v1
     from repro_torch.models.attention import _causal_mask
     from repro_torch.testing import flash_close
 
@@ -434,8 +516,18 @@ def phase7_full_width(dev, name, model, dtype):
         faults = phase7_planted_faults(q, k, v, window, want)
         print(f"phase 7 flash {model} bf16 check: kernel uses {used:.3f} of the tolerance; "
               "planted faults read " + ", ".join(f"{f} {r:.1f}x" for f, r in faults.items()))
+        first = flash_attn_v1(qf, kf, vf, **kw)
+        torch.cuda.synchronize()
+        first_err, first_used = flash_close(first, want)
+        del first
     del want
     ms = cuda_ms(lambda: flash_attention_cuda(qf, kf, vf, **kw), reps=10)
+    first_ms = None
+    if dtype == torch.bfloat16:
+        first_ms = cuda_ms(lambda: flash_attn_v1(qf, kf, vf, **kw), reps=5)
+        ms_again = cuda_ms(lambda: flash_attention_cuda(qf, kf, vf, **kw), reps=10)
+        print(f"  first bf16 design (fp32 FMAs): max|d|={first_err:.3e} tol used "
+              f"{first_used:.3f}, {first_ms:.3f} ms/launch; the kernel again {ms_again:.3f} ms")
     plain_ms = cuda_ms(lambda: flash_attention_plain(qf, kf, vf, **kw), reps=2)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))   # (B, H, S, hd) views
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -447,14 +539,15 @@ def phase7_full_width(dev, name, model, dtype):
     flops = 4.0 * hd * visible_pairs(s, s, True, window) * b * h
     flash_bytes = nbytes(qf, kf, vf, got)
     bound_ms, bound_by = bound(flops, flash_bytes, name, dtype)
-    n_ctas = -(-s // 64) * b * h
+    q_tile = 128 if dtype == torch.bfloat16 and hd <= 128 else 64   # rows a CTA (csrc/flash_attn*)
+    n_ctas = -(-s // q_tile) * b * h
     print(f"phase 7 flash {model} {str(dtype)[6:]}: B={b} S={s} H={h} KVH={kvh} hd={hd} "
           f"window={window} CTAs {n_ctas} max|d|={err:.3e} tol used {used:.3f}")
     print(f"  flash_attn kernel {ms:.3f} ms/launch, plain {plain_ms:.3f} ms, sdpa "
           f"{library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: {flops:.3e} flop, "
           f"{flash_bytes:.3e} B), {flops / ms / 1e9:.1f} TFLOP/s")
     return dict(max_abs_err=err, used=used, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+                bound_by=bound_by, library_ms=library_ms, first_ms=first_ms)
 
 
 def phase7_main_path(dev, reset_counts, counters):
@@ -475,7 +568,9 @@ def phase7_main_path(dev, reset_counts, counters):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = flash_attention_cuda.launches
+    bf16_launches = flash_attention_cuda.bf16_launches
     assert launches == len(calls), launches
+    assert bf16_launches == sum(dtype == torch.bfloat16 for _, dtype in calls), bf16_launches
     assert all(fn.launches == 0 for fn in counters if fn is not flash_attention_cuda)
     worst = 0.0
     for (m, dtype), out in zip(calls, outs):
@@ -496,8 +591,8 @@ def phase7_main_path(dev, reset_counts, counters):
               f"{'_sdpa + _causal_mask' if dtype == torch.float32 else 'plain'} "
               f"max|d|={err:.3e} tol used {used:.3f}")
     print(f"phase 7 main path: {len(calls)} flash_sdpa calls in {wall:.3f} s, launches "
-          f"flash_attn {launches}")
-    return launches, worst
+          f"flash_attn {launches} (of which the bf16 tensor-core kernel {bf16_launches})")
+    return launches, bf16_launches, worst
 
 
 # Phase 8: wkv at rwkv6-3b's width (src/repro/configs/rwkv6_3b.py: d_model
@@ -624,7 +719,7 @@ def main():
     from repro_torch.core.engine import JoinSpec, JoinStats, SparseKNNIndex
     from repro_torch.core.topk import TopKState, init_topk, merge_topk_states
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attn.kernel import HEAD_DIMS, flash_attention_cuda
     from repro_torch.kernels.wkv.kernel import wkv_cuda
     from repro_torch.kernels.knn_score.kernel import knn_score_cuda
     from repro_torch.kernels.knn_score.ops import knn_score
@@ -662,6 +757,7 @@ def main():
     def reset_counts():
         for fn in counters:
             fn.launches = 0
+        flash_attention_cuda.bf16_launches = 0
 
     edge_err = phase1_edge_cases(dev)
 
@@ -699,6 +795,7 @@ def main():
           f"{cached_launches} for 2 queries x {r_blocks} R blocks, device_dispatches "
           f"{stats.device_dispatches}, tiles_scored {stats.tiles_scored}, 256 rows vs "
           f"float64 scipy max|dscore|={oracle_err:.3e}")
+    route_err = phase2_large_k_and_odd_tile(dev)
 
     # phase 1 at the engine's own shapes: one 2048-row R block, all of S
     br = R.rows(0, BLOCK).to(dev)
@@ -861,8 +958,34 @@ def main():
     print(f"phase 6 merge_topk_states: two half-S indexes queried and merged in {split_s:.3f} s, "
           f"launches knn_topk {split_counts[0]} topk_merge {split_counts[1]}, vs full query "
           f"max|dscore|={split_err:.3e}, kernel merge bit-identical to the plain body")
+    # merge_topk_states at k = 200: the large-k kernel (a CTA a row), bit for bit
+    a_big = TopKState(*merge_inputs(dev, 11, N_R, 200, 1, False, "mixed")[:2])
+    b_big = TopKState(*merge_inputs(dev, 12, N_R, 200, 1, False, "mixed")[:2])
+    big = merge_topk_states(a_big, b_big)
+    torch.cuda.synchronize()
+    plain_big = insert_candidates(a_big.scores, a_big.ids, b_big.scores, b_big.ids)
+    assert torch.equal(big.scores, plain_big[0]) and torch.equal(big.ids, plain_big[1])
+    big_args = (a_big.scores, a_big.ids, b_big.scores, b_big.ids)
+    big_ms = cuda_ms(lambda: topk_merge_cuda(*big_args), reps=20)
+    big_plain_ms = cuda_ms(lambda: topk_merge_plain(*big_args), reps=5)
+    big_library_ms = cuda_ms(lambda: torch.topk(torch.cat([a_big.scores, b_big.scores], 1), 200,
+                                                dim=1), reps=20)
+    big_bytes = nbytes(*big_args, big.scores, big.ids)
+    big_bound_ms, big_bound_by = bound(N_R * 400.0, big_bytes, name)
+    print(f"phase 6 merge_topk_states k=200: N={N_R} M=200, kernel merge bit-identical to the "
+          f"plain body; topk_merge large-k kernel {big_ms:.4f} ms/launch, plain "
+          f"{big_plain_ms:.3f} ms, cat+topk {big_library_ms:.3f} ms, bound {big_bound_ms:.4f} ms "
+          f"({big_bound_by}: {big_bytes:.3e} B), {usage_of(usage, 'topk_merge_large_kernel')}")
+    del a_big, b_big, big, plain_big, big_args
 
-    # phase 7: flash attention at qwen3-0.6b and recurrentgemma-2b widths
+    # phase 7: flash attention at qwen3-0.6b and recurrentgemma-2b widths; the bf16
+    # kernel's tensor-core instructions and registers per head width first
+    mma_counts = sass_mma_counts(built["flash_attn"][0], "flash_attn_mma_kernel")
+    for hd in HEAD_DIMS:
+        hits = [c for f, c in mma_counts.items() if f"ILi{hd}E" in f]
+        print(f"phase 7 flash bf16 kernel hd {hd}: {sum(hits)} HMMA/HGMMA instructions "
+              f"(cuobjdump -sass), {usage_of(usage, f'flash_attn_mma_kernelILi{hd}E')}")
+        assert len(hits) == 1 and hits[0] > 0, (hd, mma_counts)
     flash_worst = phase7_edge_cases(dev)   # {dtype: (max |Δ|, tolerance used)}
     flash_full = {}
     for m in FLASH_WIDTHS:
@@ -870,13 +993,23 @@ def main():
             flash_full[m, dtype] = phase7_full_width(dev, name, m, dtype)
             case = (flash_full[m, dtype]["max_abs_err"], flash_full[m, dtype]["used"])
             flash_worst[dtype] = tuple(map(max, flash_worst[dtype], case))
-    flash_launches, flash_op_err = phase7_main_path(dev, reset_counts, counters)
+    flash_launches, flash_bf16_launches, flash_op_err = phase7_main_path(dev, reset_counts,
+                                                                         counters)
     f32_err = max(flash_worst[torch.float32][0], flash_op_err)
     print(f"phase 7 worst: f32 max|d| {f32_err:.3e} (tol used "
           f"{flash_worst[torch.float32][1]:.3f}), bf16 max|d| "
           f"{flash_worst[torch.bfloat16][0]:.3e} (tol used {flash_worst[torch.bfloat16][1]:.3f})")
-    # the kernels line carries the qwen3-0.6b f32 case and the worst f32 error
+    for m in FLASH_WIDTHS:
+        f32_ms, bf16 = flash_full[m, torch.float32]["ms"], flash_full[m, torch.bfloat16]
+        print(f"phase 7 {m}: bf16 tensor cores {bf16['ms']:.3f} ms, first bf16 design "
+              f"{bf16['first_ms']:.3f} ms ({bf16['first_ms'] / bf16['ms']:.1f}x), f32 {f32_ms:.3f} "
+              f"ms, SDPA bf16 {bf16['library_ms']:.3f} ms ({bf16['ms'] / bf16['library_ms']:.2f}x "
+              f"its time), bound {bf16['bound_ms']:.4f} ms")
+    # the kernels line carries the qwen3-0.6b cases: f32 with the worst f32 error,
+    # bf16 with the worst bf16 error
     flash_line = dict(flash_full[("qwen3-0.6b", torch.float32)], max_abs_err=f32_err)
+    flash_bf16_line = dict(flash_full[("qwen3-0.6b", torch.bfloat16)],
+                           max_abs_err=flash_worst[torch.bfloat16][0])
 
     # phase 8: wkv at rwkv6-3b's width
     wkv_edge = phase8_edge_cases(dev)
@@ -895,7 +1028,7 @@ def main():
             "source": "src/repro_torch/kernels/csrc/knn_topk.cu",
             "replaces": "src/repro/kernels/knn_topk/kernel.py:63",
             "launches": cached_launches + stream_launches + split_counts[0],
-            "max_abs_err": max(edge_err, engine_err),
+            "max_abs_err": max(edge_err, engine_err, route_err),
             "ms": kernel_ms,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
@@ -931,11 +1064,20 @@ def main():
         {
             "name": "flash_attn",
             "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+            "source": "src/repro_torch/kernels/csrc/flash_attn_simt.cuh",
             "replaces": "src/repro/kernels/flash_attn/kernel.py:36",
-            "launches": flash_launches,
+            "launches": flash_launches - flash_bf16_launches,
             **{key: flash_line[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms")},
+        },
+        {
+            "name": "flash_attn_bf16",   # the bf16 path: mma.sync on the tensor cores
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+            "replaces": "src/repro/kernels/flash_attn/kernel.py:36",
+            "launches": flash_bf16_launches,
+            **{key: flash_bf16_line[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                     "bound_by", "library_ms")},
         },
         {
             "name": "wkv",

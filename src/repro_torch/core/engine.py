@@ -15,6 +15,11 @@ the reference, so ``tiles_scored`` and ``device_dispatches`` equal its
 counts.  Every other option of the reference engine raises
 ``NotImplementedError`` naming the ROADMAP.md queue item that ports it.
 
+For k > 128 (the fused kernel's ``MAX_K``) both modes take the score
+kernel, the candidate mask and the merge kernel instead
+(``kernels/knn_topk/ops.py::join_topk``), which give the fused kernel's
+outputs bit for bit; the counters count as before.
+
 Entry points run on ``device`` — CUDA unless the caller passes
 ``device="cpu"``, where the kernel's plain version runs.  Host-side numpy
 work (padding, occupancy, active lists) stays on the host, as in the
@@ -33,8 +38,7 @@ from repro_torch.core.index import active_tile_list
 from repro_torch.core.topk import TopKState, init_topk, min_prune_score
 from repro_torch.device import resolve_device
 from repro_torch.kernels.knn_score.ops import _pad_rows, active_lists, dense_tiles_with_sentinel
-from repro_torch.kernels.knn_topk.kernel import knn_topk_fused
-from repro_torch.kernels.knn_topk.ops import knn_topk, pad_state
+from repro_torch.kernels.knn_topk.ops import join_topk, knn_topk, pad_state
 from repro_torch.sparse.format import DEFAULT_TILE, SparseBatch, from_arrays, num_tiles
 
 # planner constants (the reference's): the pair-score accumulator of one
@@ -437,9 +441,11 @@ class SparseKNNIndex:
         """One fused score→top-k launch covers every S block.  The
         threshold starts at the fresh state's MinPruneScore and rises inside
         the kernel across the S blocks; ``n_valid`` keeps padding rows out
-        of the threshold reduce."""
+        of the threshold reduce.  For k > 128 a score launch and a merge
+        launch for each window of the stack take its place (``join_topk``,
+        the same outputs; a window holds at most ``MAX_SCORES`` scores)."""
         args, kwargs, n_active = self.kernel_inputs(br, r_idx, n_valid)
-        out_s, out_i, _ = knn_topk_fused(*args, **kwargs)
+        out_s, out_i = join_topk(*args, **kwargs)
         stats.device_dispatches += 1
         stats.blocks += len(self._blocks)
         stats.tiles_scored += n_active

@@ -8,7 +8,8 @@
 //
 // Lists are ascending and padded with the sentinel tile T = t1 - 1, which
 // is all zeros, so the walk stops at the first entry outside [0, T) and
-// the result is unchanged.
+// the result is unchanged.  s_tiles may be a window of n_s columns of a
+// larger (T+1, s_ld, tile) stack: consecutive tiles lie s_ld rows apart.
 //
 // Design: one CTA per 128 x 128 tile of one block pair (clipped at the
 // pair's edge, so one active list serves it): 16 x 80 = 1,280 CTAs at the
@@ -85,10 +86,11 @@ __global__ void __launch_bounds__(kThreads, 2) knn_score_kernel(Params p) {
 }  // namespace
 
 extern "C" int knn_score_launch(const float* r_tiles, const float* s_tiles, const int* active,
-                                float* out, int t1, int n_r, int n_s, int tile, int n_rb,
-                                int n_sb, int a_len, int block_r, int block_s, void* stream) {
+                                float* out, int t1, int n_r, int n_s, int s_ld, int tile,
+                                int n_rb, int n_sb, int a_len, int block_r, int block_s,
+                                void* stream) {
   if (t1 < 1 || tile < 4 || tile % 4 || n_rb < 1 || n_sb < 1 || a_len < 0 || block_r < 1 ||
-      block_s < 1 || n_r != n_rb * block_r || n_s != n_sb * block_s)
+      block_s < 1 || n_r != n_rb * block_r || n_s != n_sb * block_s || s_ld < n_s)
     return (int)cudaErrorInvalidValue;
   const int sub_r = (block_r + kTile - 1) / kTile, sub_s = (block_s + kTile - 1) / kTile;
   const long long ctas = (long long)n_rb * sub_r * n_sb * sub_s;
@@ -100,7 +102,7 @@ extern "C" int knn_score_launch(const float* r_tiles, const float* s_tiles, cons
     err = cudaFuncSetAttribute(knn_score_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
-  const Params p{{r_tiles, s_tiles, n_r, n_s, tile}, active, out, t1, n_sb, a_len,
+  const Params p{{r_tiles, s_tiles, n_r, n_s, tile, s_ld}, active, out, t1, n_sb, a_len,
                  block_r, block_s, sub_r, sub_s};
   knn_score_kernel<<<(unsigned)ctas, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();

@@ -330,7 +330,7 @@ extern "C" int knn_topk_launch(const float* r_tiles, const float* s_tiles, const
       n_s != n_sb * block_s || range_len < 1 || n_ranges > 65535 ||
       n_ranges != (n_sb * ((block_s + kTile - 1) / kTile) + range_len - 1) / range_len)
     return (int)cudaErrorInvalidValue;
-  const Params p{{r_tiles, s_tiles, n_r, n_s, tile}, active, s_valid, s_ids, init_s, init_i,
+  const Params p{{r_tiles, s_tiles, n_r, n_s, tile, n_s}, active, s_valid, s_ids, init_s, init_i,
                  thr_in, nr_valid, part_s, part_i, offered, out_s, out_i, thr_out, t1, n_sb,
                  a_len, k, block_r, block_s, (block_r + kTile - 1) / kTile, n_ranges, range_len};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -87,8 +87,9 @@ __device__ __forceinline__ float4 load16(const float* p) {
 
 struct Operands {
   const float* r_tiles;  // (T+1, n_r, tile)
-  const float* s_tiles;  // (T+1, n_s, tile)
+  const float* s_tiles;  // n_s columns of a (T+1, s_ld, tile) stack
   int n_r, n_s, tile;
+  int s_ld;              // the S stack's rows between consecutive tiles (>= n_s)
 };
 
 // acc = the CTA's tile of rows row0 .. row0 + nrow - 1 against columns
@@ -111,7 +112,7 @@ __device__ __forceinline__ void accumulate(float (&acc)[8][8], float* stage, con
   const bool r_in = lrow < nrow, s_in = lrow < ncol;
   const float* r_base = op.r_tiles + ((size_t)row0 + lrow) * op.tile + ld;
   const float* s_base = op.s_tiles + ((size_t)col0 + lrow) * op.tile + ld;
-  const size_t r_stride = (size_t)op.n_r * op.tile, s_stride = (size_t)op.n_s * op.tile;
+  const size_t r_stride = (size_t)op.n_r * op.tile, s_stride = (size_t)op.s_ld * op.tile;
 
   int fa = 0, fd = 0;  // the next slice to fetch: list entry, first dim
   float4 ra[kLoads], sa[kLoads];

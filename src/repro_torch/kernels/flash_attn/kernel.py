@@ -5,10 +5,13 @@
 ``causal``, ``sm_scale`` and ``window``; k and v may also hold BH / g
 heads, query head i reading kv head i // g (GQA without repeating kv).
 No padding: Sq and Skv may be any length.  On CUDA tensors it launches the
-hand-written kernel of ``../csrc/flash_attn.cu``; on CPU tensors it runs
-the plain version (``ref.flash_attention_plain``).  Nothing falls back: a
-CUDA tensor that the kernel cannot take raises.
-``flash_attention_cuda.launches`` counts the kernel's launches.
+hand-written kernels of ``../csrc/flash_attn.cu``: f32 in fp32 FMAs
+(``flash_attn_simt.cuh``), bf16 on the tensor cores (``mma.sync``
+bf16 x bf16 with f32 accumulators, as the Pallas kernel's products).  On
+CPU tensors it runs the plain version (``ref.flash_attention_plain``).
+Nothing falls back: a CUDA tensor that the kernels cannot take raises.
+``flash_attention_cuda.launches`` counts the launches of both kernels,
+``flash_attention_cuda.bf16_launches`` those of the tensor-core kernel.
 """
 from __future__ import annotations
 
@@ -64,7 +67,10 @@ def flash_attention_cuda(
            _DTYPES[q.dtype], bh, sq, skv, hd, bh // kvh, int(bool(causal)), int(window),
            float(sm_scale))
     flash_attention_cuda.launches += 1
+    if q.dtype == torch.bfloat16:
+        flash_attention_cuda.bf16_launches += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.bf16_launches = 0

@@ -5,8 +5,9 @@
 scores.  On CUDA tensors it launches the hand-written kernel of
 ``../csrc/knn_score.cu``; on CPU tensors it runs the plain version
 (``ref.knn_score_plain``).  Nothing falls back: a CUDA tensor that the
-kernel cannot take raises.  ``knn_score_cuda.launches`` counts the
-kernel's launches.
+kernel cannot take raises.  ``s_tiles`` may be a column slice
+``stack[:, c0:c1]`` of a contiguous stack, read in place.
+``knn_score_cuda.launches`` counts the kernel's launches.
 """
 from __future__ import annotations
 
@@ -17,12 +18,12 @@ import torch
 from repro_torch.kernels._build import check, launch
 from repro_torch.kernels.knn_score.ref import knn_score_plain
 
-_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 9
+_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 10
 
 
 def knn_score_cuda(
     r_tiles: torch.Tensor,   # (T+1, NR, tile) f32 — sentinel tile last, all zeros
-    s_tiles: torch.Tensor,   # (T+1, NS, tile) f32
+    s_tiles: torch.Tensor,   # (T+1, NS, tile) f32, or a column slice of a larger stack
     active: torch.Tensor,    # (nR, nS, A) int32, ascending, sentinel T padding
     block_r: int = 256,
     block_s: int = 256,
@@ -44,7 +45,12 @@ def knn_score_cuda(
                          f"block_r={block_r} and block_s={block_s}")
     n_rb, n_sb = n_r // block_r, n_s // block_s
     check("r_tiles", r_tiles, torch.float32, (t1, n_r, tile), dev)
-    check("s_tiles", s_tiles, torch.float32, (t1, n_s, tile), dev)
+    # s_tiles: contiguous, or a column slice of a contiguous stack (s_ld rows a tile)
+    check("s_tiles", s_tiles[:, :0], torch.float32, (t1, 0, tile), dev)
+    s_ld, rem = divmod(s_tiles.stride(0), tile)
+    if s_tiles.stride()[1:] != (tile, 1) or rem or s_ld < n_s:
+        raise ValueError("s_tiles must be contiguous or a column slice of a contiguous stack, "
+                         f"got strides {s_tiles.stride()}")
     check("active", active, torch.int32, (n_rb, n_sb, active.shape[2]), dev)
     if tile % 4 or r_tiles.data_ptr() % 16 or s_tiles.data_ptr() % 16:
         raise ValueError("the kernel reads 16 bytes at a time: tile must be a multiple of 4 "
@@ -53,7 +59,7 @@ def knn_score_cuda(
     out = torch.empty((n_r, n_s), dtype=torch.float32, device=dev)
     launch("knn_score", _ARGTYPES, dev,
            r_tiles.data_ptr(), s_tiles.data_ptr(), active.data_ptr(), out.data_ptr(),
-           t1, n_r, n_s, tile, n_rb, n_sb, active.shape[2], block_r, block_s)
+           t1, n_r, n_s, s_ld, tile, n_rb, n_sb, active.shape[2], block_r, block_s)
     knn_score_cuda.launches += 1
     return out
 

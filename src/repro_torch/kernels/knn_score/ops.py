@@ -26,11 +26,16 @@ def _pad_rows(x: torch.Tensor, block: int) -> torch.Tensor:
 
 
 def dense_tiles_with_sentinel(batch: SparseBatch, tile: int) -> torch.Tensor:
-    """(T+1, N, tile) — dense dim-tiles plus a trailing zero sentinel tile."""
+    """(T+1, N, tile4) — dense dim-tiles plus a trailing zero sentinel tile.
+
+    Each tile's width is ``tile`` rounded up to a multiple of 4 with zero
+    dims (tile4 == tile when tile % 4 == 0): the CUDA kernels read rows 16
+    bytes at a time, and a zero dim adds exactly nothing to a score.  The
+    tile index itself (occupancy, active lists) keeps ``tile``."""
     from repro_torch.core.index import dense_r_tiles
 
     t = dense_r_tiles(batch, tile)                 # (T, N, tile)
-    return torch.cat([t, torch.zeros((1,) + t.shape[1:], dtype=t.dtype, device=t.device)])
+    return torch.nn.functional.pad(t, (0, -tile % 4, 0, 0, 0, 1))
 
 
 def active_lists(

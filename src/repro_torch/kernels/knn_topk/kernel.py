@@ -83,7 +83,9 @@ def knn_topk_fused(
     n_s = s_tiles.shape[1]
     k = init_scores.shape[1]
     if not 1 <= k <= MAX_K:
-        raise ValueError(f"k must be in [1, {MAX_K}], got {k}")
+        raise ValueError(f"k must be in [1, {MAX_K}] for the fused kernel, got {k}; a larger k "
+                         "takes knn_topk.ops.score_then_merge (knn_score_cuda, the candidate "
+                         "mask, topk_merge_cuda), as SparseKNNIndex and knn_topk do")
     if not 1 <= block_r <= MAX_BLOCK_R or block_s < 1:
         raise ValueError(f"block_r must be in [1, {MAX_BLOCK_R}] and block_s >= 1")
     if n_r < 1 or n_r % block_r or n_s < 1 or n_s % block_s:

@@ -1,10 +1,12 @@
-"""Launchers of the first CUDA designs of knn_topk and knn_score
-(``csrc/legacy/*_v1.cu``: one CTA per 256-row group walking S in order;
-a CTA per 64 x 64 sub-tile with a 4 x 4 micro-tile).  On no path of the
-port: ``chip_smoke.py`` runs them once at the engine's shapes to show that
-the present kernels give bit for bit their outputs.  They take the
-arguments of ``knn_topk_fused`` and ``knn_score_cuda`` on CUDA tensors that
-those wrappers have already checked.
+"""Launchers of the first CUDA designs of knn_topk, knn_score and
+flash_attn's bf16 path (``csrc/legacy/*_v1.cu``: one CTA per 256-row group
+walking S in order; a CTA per 64 x 64 sub-tile with a 4 x 4 micro-tile;
+fp32 FMAs on bf16 converted at load).  On no path of the port:
+``chip_smoke.py`` runs them at the engine's and the models' shapes, to
+show that the present join kernels give bit for bit their outputs and to
+time each beside the design that replaced it.  They take the arguments of
+``knn_topk_fused``, ``knn_score_cuda`` and ``flash_attention_cuda`` on
+CUDA tensors that those wrappers have already checked.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from repro_torch.kernels._build import launch
 
 _TOPK_ARGTYPES = (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 10
 _SCORE_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 9
+_FLASH_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 7 + (ctypes.c_float,)
 
 
 def knn_topk_v1(r_tiles, s_tiles, active, s_valid, s_ids, init_scores, init_ids, thr,
@@ -45,4 +48,15 @@ def knn_score_v1(r_tiles, s_tiles, active, block_r, block_s):
     launch("knn_score_v1", _SCORE_ARGTYPES, dev,
            r_tiles.data_ptr(), s_tiles.data_ptr(), active.data_ptr(), out.data_ptr(),
            t1, n_r, n_s, tile, n_r // block_r, n_s // block_s, active.shape[2], block_r, block_s)
+    return out
+
+
+def flash_attn_v1(q, k, v, causal=True, sm_scale=1.0, window=0):
+    """The fp32-FMA design's (BH, Sq, hd) bf16 output for bf16 q, k, v."""
+    bh, sq, hd = q.shape
+    out = torch.empty_like(q)
+    launch("flash_attn_v1", _FLASH_ARGTYPES, q.device,
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+           bh, sq, k.shape[1], hd, bh // k.shape[0], int(bool(causal)), int(window),
+           float(sm_scale))
     return out

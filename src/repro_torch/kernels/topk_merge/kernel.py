@@ -10,12 +10,13 @@ M insertion passes of (N, M) candidates into an (N, k) descending state:
 
 ``insert_candidates`` is the plain form of that body, bit for bit the JAX
 package's; tests hold the kernel and ``ref.topk_merge_plain`` against it.
-``topk_merge_cuda`` launches the hand-written kernel of
-``../csrc/topk_merge.cu`` (one warp a row, the body of
-``../csrc/topk_insert.cuh``, shared with the fused knn_topk kernel) on
-CUDA tensors, and runs ``ref.topk_merge_plain`` on CPU tensors.  Nothing
-falls back: a CUDA tensor that the kernel cannot take raises.
-``topk_merge_cuda.launches`` counts the kernel's launches.
+``topk_merge_cuda`` launches the hand-written kernels of
+``../csrc/topk_merge.cu`` on CUDA tensors, and runs
+``ref.topk_merge_plain`` on CPU tensors: for k <= 128 one warp a row (the
+body of ``../csrc/topk_insert.cuh``, shared with the fused knn_topk
+kernel), for any larger k one CTA a row that writes each entry to its rank
+in the stable sort.  Nothing falls back: a CUDA tensor that the kernels
+cannot take raises.  ``topk_merge_cuda.launches`` counts the launches.
 """
 from __future__ import annotations
 
@@ -26,8 +27,7 @@ import torch
 from repro_torch.kernels._build import check, launch
 from repro_torch.kernels.topk_merge.ref import topk_merge_plain
 
-MAX_K = 128
-_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 4
+_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 4
 
 
 def insert_candidates(state_scores, state_ids, cand_scores, cand_ids):
@@ -62,8 +62,8 @@ def topk_merge_cuda(
         raise ValueError("state_scores and cand_scores must be 2-d")
     n, k = state_scores.shape
     m = cand_scores.shape[1]
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k must be in [1, {MAX_K}], got {k}")
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
     check("state_scores", state_scores, torch.float32, (n, k), dev)
     check("state_ids", state_ids, torch.int32, (n, k), dev)
     check("cand_scores", cand_scores, torch.float32, (n, m), dev)
@@ -74,10 +74,14 @@ def topk_merge_cuda(
     out_i = torch.empty((n, k), dtype=torch.int32, device=dev)
     if n == 0:
         return out_s, out_i
+    # the second state buffer of the large-k kernel (k > 128), which uses it
+    # when the state is too large for shared memory
+    scratch_s = torch.empty_like(out_s) if k > 128 else out_s
+    scratch_i = torch.empty_like(out_i) if k > 128 else out_i
     launch("topk_merge", _ARGTYPES, dev,
            state_scores.data_ptr(), state_ids.data_ptr(), cand_scores.data_ptr(),
-           cand_ids.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-           n, k, m, 0 if shared else m)
+           cand_ids.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), scratch_s.data_ptr(),
+           scratch_i.data_ptr(), n, k, m, 0 if shared else m)
     topk_merge_cuda.launches += 1
     return out_s, out_i
 

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card: knn_topk_fused, knn_score_cuda,
-topk_merge_cuda, flash_attention_cuda and wkv_cuda against their plain
+topk_merge_cuda (k <= 128 and the large-k kernel), flash_attention_cuda
+(f32, and bf16 on the tensor cores) and wkv_cuda against their plain
 versions, merge_topk_states, the public ops, the wrappers' input checks,
-and the fused-kernel join path in both modes.
+and the fused-kernel join path in both modes, with the k > 128 route and
+a tile that is not a multiple of 4.
 Every test here needs a CUDA device and skips without one.  The file imports neither jax
 nor repro, so it runs on a machine with the card alone:
 
@@ -27,7 +29,7 @@ from repro_torch.kernels.knn_score.ops import (  # noqa: E402
 )
 from repro_torch.kernels.knn_score.ref import knn_score_plain  # noqa: E402
 from repro_torch.kernels.knn_topk.kernel import knn_topk_fused  # noqa: E402
-from repro_torch.kernels.knn_topk.ops import column_meta, pad_state  # noqa: E402
+from repro_torch.kernels.knn_topk.ops import column_meta, pad_state, score_then_merge  # noqa: E402,E501
 from repro_torch.kernels.knn_topk.ref import knn_topk_plain  # noqa: E402
 from repro_torch.kernels.topk_merge.kernel import insert_candidates, topk_merge_cuda  # noqa: E402
 from repro_torch.kernels.topk_merge.ref import topk_merge_plain  # noqa: E402
@@ -169,6 +171,30 @@ def test_join_modes_on_card_match_cpu(cuda):
                           cpu.scores.numpy(), cpu.ids.numpy(), RTOL, ATOL)
 
 
+@pytest.mark.parametrize("k,tile", [(150, 128), (5, 126)])
+def test_join_large_k_and_odd_tile_on_card_match_cpu(cuda, k, tile):
+    """k 150 takes the score and merge kernels (score_then_merge), one of
+    each per R block cached and per pair streaming, and never the fused
+    kernel; tile 126 runs the fused kernel on tiles padded to 128.  Both
+    give the CPU path's answer."""
+    R = synthetic_sparse(300, dim=2000, nnz_mean=40, seed=0)
+    S = synthetic_sparse(700, dim=2000, nnz_mean=40, seed=1)
+    spec = JoinSpec(k=k, algorithm="iib", r_block=128, s_block=256, tile=tile, use_kernel=True)
+    counters = (knn_topk_fused, knn_score_cuda, topk_merge_cuda)
+    before = [fn.launches for fn in counters]
+    res = SparseKNNIndex.build(S, spec).query(R)
+    out = knn_join(R, S, k, algorithm="iib", r_block=128, s_block=256, tile=tile,
+                   use_kernel=True)
+    launched = [fn.launches - b for fn, b in zip(counters, before)]
+    assert res.stats.device_dispatches == 3
+    assert launched == ([0, 3 + 3 * 3, 3 + 3 * 3] if k > 128 else [3 + 3 * 3, 0, 0])
+    cpu = SparseKNNIndex.build(S, spec, device="cpu").query(R)
+    for got in (res.state, out):
+        assert got.scores.shape == (300, k)
+        assert_topk_close(got.scores.cpu().numpy(), got.ids.cpu().numpy(),
+                          cpu.scores.numpy(), cpu.ids.numpy(), RTOL, ATOL)
+
+
 def _score_inputs(dev, nr, ns, dim, tile, br, bs):
     R = synthetic_sparse(nr, dim=dim, nnz_mean=15, nnz_std=4, seed=nr + ns).to(dev)
     S = synthetic_sparse(ns, dim=dim, nnz_mean=15, nnz_std=4, seed=nr * ns).to(dev)
@@ -236,6 +262,57 @@ def test_topk_merge_kernel_matches_plain(cuda, n, k, m, shared_ids, ties):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("n,k,m,shared_ids,ties", [
+    (64, 129, 300, True, False),     # the smallest k of the large-k kernel; shared (M,) ids
+    (100, 150, 500, False, True),    # all candidates equal: ties
+    (33, 256, 256, True, False),
+    (20, 1000, 3000, False, False),
+    (16, 200, 1, False, False),      # one candidate column
+    (4, 5000, 6000, True, False),    # the state in global scratch
+])
+def test_topk_merge_large_k_matches_plain(cuda, n, k, m, shared_ids, ties):
+    args = _merge_inputs(cuda, n + k + m, n, k, m, shared_ids, ties)
+    before = topk_merge_cuda.launches
+    got = topk_merge_cuda(*args)
+    torch.cuda.synchronize()
+    assert topk_merge_cuda.launches == before + 1
+    want = topk_merge_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_merge_topk_states_large_k_on_card(cuda):
+    a = _merge_inputs(cuda, 3, 500, 200, 200, False)
+    b = _merge_inputs(cuda, 4, 500, 200, 200, False)
+    b[0][::3] = a[0][::3]   # rows tied between the shards
+    before = topk_merge_cuda.launches
+    got = merge_topk_states(TopKState(a[0], a[1]), TopKState(b[0], b[1]))
+    assert topk_merge_cuda.launches == before + 1
+    want = insert_candidates(a[0], a[1], b[0], b[1])
+    assert torch.equal(got.scores, want[0]) and torch.equal(got.ids, want[1])
+
+
+@pytest.mark.parametrize("k", [7, 150])
+def test_score_then_merge_windows_on_card(cuda, k):
+    """score_then_merge on the card in windows of 1 and 3 S blocks (the
+    score kernel reading each window in place from the stack) equals one
+    window bit for bit, one score and one merge launch a window; at k 7
+    it equals the fused kernel bit for bit."""
+    args, kwargs = _inputs(cuda, 300, 700, 2000, 128, 64, k, True, "ties")
+    blk = dict(block_r=128, block_s=64)
+    one = score_then_merge(*args, **blk)
+    pairs = args[0].shape[1] * 64
+    for blocks in (1, 3):
+        before = (knn_score_cuda.launches, topk_merge_cuda.launches)
+        got = score_then_merge(*args, **blk, max_scores=blocks * pairs)
+        windows = -(-args[1].shape[1] // (blocks * 64))
+        assert (knn_score_cuda.launches - before[0], topk_merge_cuda.launches - before[1]) == (
+            windows, windows)
+        assert torch.equal(got[0], one[0]) and torch.equal(got[1], one[1])
+    if k <= 128:
+        fused = knn_topk_fused(*args, **kwargs)
+        assert torch.equal(fused[0], one[0]) and torch.equal(fused[1], one[1])
+
+
 def test_merge_topk_states_kernel_is_the_plain_body(cuda):
     a = _merge_inputs(cuda, 1, 500, 5, 5, False)
     b = _merge_inputs(cuda, 2, 500, 5, 5, False)
@@ -271,9 +348,9 @@ def test_score_and_merge_wrappers_reject_bad_inputs(cuda):
         topk_merge_cuda(ss, si, cs[:, :39], ci)
     with pytest.raises(ValueError):
         topk_merge_cuda(ss, si, cs.t().contiguous().t(), ci)
-    big = torch.full((32, 129), float("-inf"), device=cuda)
+    empty = torch.full((32, 0), float("-inf"), device=cuda)
     with pytest.raises(ValueError, match="k must be"):
-        topk_merge_cuda(big, big.int(), cs, ci)
+        topk_merge_cuda(empty, empty.int(), cs, ci)
 
 
 def _qkv(dev, bh, kvh, sq, skv, hd, dtype, seed=0):
@@ -303,6 +380,44 @@ def test_flash_kernel_matches_plain(cuda, bh, kvh, sq, skv, hd, causal, window, 
     assert got.dtype == dtype and got.shape == q.shape
     want = flash_attention_plain(q, k, v, causal=causal, sm_scale=hd ** -0.5, window=window)
     flash_close(got, want)
+
+
+@pytest.mark.parametrize("bh,kvh,sq,skv,hd,causal,window", [
+    (2, 2, 128, 128, 32, True, 0),     # hd 32
+    (2, 1, 150, 150, 64, True, 0),     # hd 64, g 2
+    (4, 2, 200, 200, 128, True, 0),    # hd 128
+    (2, 1, 200, 200, 256, True, 0),    # hd 256: 32-key tiles, Q re-read per k-step
+    (10, 1, 130, 130, 128, True, 0),   # g 10
+    (4, 2, 100, 77, 64, False, 0),     # non-causal, Skv not a multiple of 8 or 16
+    (3, 3, 9, 9, 128, True, 0),        # Sq < 16: a partial m16 tile
+    (2, 2, 9, 25, 64, False, 0),       # Sq < 16, non-causal
+    (2, 2, 128, 64, 64, True, 16),     # rows from 79 on see no key
+    (2, 1, 200, 200, 128, True, 100),  # a window edge inside each q tile
+    (2, 1, 300, 300, 256, True, 40),   # hd 256 with a window edge inside q tiles
+])
+def test_flash_bf16_tensor_core_kernel_matches_plain(cuda, bh, kvh, sq, skv, hd, causal,
+                                                      window):
+    q, k, v = _qkv(cuda, bh, kvh, sq, skv, hd, torch.bfloat16, seed=sq * skv + hd)
+    before = (flash_attention_cuda.launches, flash_attention_cuda.bf16_launches)
+    got = flash_attention_cuda(q, k, v, causal=causal, sm_scale=hd ** -0.5, window=window)
+    torch.cuda.synchronize()
+    assert (flash_attention_cuda.launches, flash_attention_cuda.bf16_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    want = flash_attention_plain(q, k, v, causal=causal, sm_scale=hd ** -0.5, window=window)
+    flash_close(got, want)
+    if window == 16:   # no visible key: exactly 0
+        assert not got[:, 79:].any()
+
+
+@pytest.mark.parametrize("sm_scale", [-0.125, 0.0, 0.5])
+def test_flash_bf16_kernel_takes_any_sm_scale(cuda, sm_scale):
+    """The bf16 kernel scales the f32 accumulator before the row max, so a
+    zero or negative scale softmaxes as the plain version does."""
+    q, k, v = _qkv(cuda, 2, 2, 100, 100, 64, torch.bfloat16, seed=5)
+    got = flash_attention_cuda(q, k, v, causal=True, sm_scale=sm_scale)
+    flash_close(got, flash_attention_plain(q, k, v, causal=True, sm_scale=sm_scale))
 
 
 def test_flash_sdpa_op_matches_model_sdpa(cuda):

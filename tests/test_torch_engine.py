@@ -2,15 +2,18 @@
 use_kernel=True, and knn_join) against the JAX engine and the dense oracle,
 on the CPU where the kernel's plain version runs.  Scores within rtol=1e-5,
 atol=1e-6, ids equal outside tie groups; tiles_scored and
-device_dispatches equal the reference's."""
+device_dispatches equal the reference's.  Also the k > 128 route
+(score_then_merge) and tiles that are not a multiple of 4."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro.core import knn_join as jax_knn_join  # noqa: E402
 from repro.core.engine import JoinSpec as JaxSpec  # noqa: E402
 from repro.core.engine import SparseKNNIndex as JaxIndex  # noqa: E402
 from repro.core.reference import oracle_knn  # noqa: E402
+from repro.sparse.datagen import synthetic_sparse as jax_synthetic  # noqa: E402
 from repro.sparse.format import densify  # noqa: E402
 from repro_torch.core.blocknl import knn_join  # noqa: E402
 from repro_torch.core.engine import (  # noqa: E402
@@ -21,7 +24,8 @@ from repro_torch.core.engine import (  # noqa: E402
 )
 from repro_torch.core.topk import init_topk  # noqa: E402
 from repro_torch.kernels.knn_score.ops import knn_score  # noqa: E402
-from repro_torch.kernels.knn_topk.kernel import knn_topk_fused  # noqa: E402
+from repro_torch.kernels.knn_topk import ops as knn_topk_ops  # noqa: E402
+from repro_torch.kernels.knn_topk.kernel import MAX_K, knn_topk_fused  # noqa: E402
 from repro_torch.kernels.knn_topk.ops import column_meta, knn_topk  # noqa: E402
 from repro_torch.kernels.topk_merge.ops import topk_merge  # noqa: E402
 from repro_torch.sparse.format import from_arrays  # noqa: E402
@@ -95,6 +99,64 @@ def test_ragged_blocks_match_oracle(rs, r_block, s_block, k):
     out = knn_join(pR, pS, k, algorithm="iib", r_block=r_block, s_block=s_block,
                    use_kernel=True, device="cpu")
     _oracle(out.scores.numpy(), osc)
+
+
+@pytest.fixture(scope="module")
+def wide_rs():
+    """R 40 and S 300 rows at dim 2000: S enough for k up to 200."""
+    R = jax_synthetic(40, dim=2000, nnz_mean=40, seed=0)
+    S = jax_synthetic(300, dim=2000, nnz_mean=40, seed=1)
+    return R, S, _port(R), _port(S)
+
+
+@pytest.mark.parametrize("k", [150, 200])
+def test_large_k_route_matches_jax_and_oracle(wide_rs, monkeypatch, k):
+    """k > MAX_K: cached mode, streaming mode and knn_join take
+    score_then_merge (the fused kernel is never called), equal the JAX
+    package's knn_join and the oracle, and count dispatches as the
+    reference does: one per R block cached, one per pair streaming."""
+    assert k > MAX_K
+    R, S, pR, pS = wide_rs
+
+    def fused(*args, **kwargs):
+        raise AssertionError("the fused kernel was called at k > MAX_K")
+
+    monkeypatch.setattr(knn_topk_ops, "knn_topk_fused", fused)
+    want = jax_knn_join(R, S, k, algorithm="iib", r_block=16, s_block=128, use_kernel=True)
+    osc, _ = oracle_knn(np.asarray(densify(R)), np.asarray(densify(S)), k)
+    spec = JoinSpec(k=k, algorithm="iib", r_block=16, s_block=128, use_kernel=True)
+    cached = SparseKNNIndex.build(pS, spec, device="cpu").query(pR)
+    streaming = SparseKNNIndex.build(pS, spec, cache_device_blocks=False, device="cpu").query(pR)
+    joined = knn_join(pR, pS, k, algorithm="iib", r_block=16, s_block=128, use_kernel=True,
+                      device="cpu")
+    for got in (cached, streaming, joined):
+        assert got.scores.shape == got.ids.shape == (40, k)
+        assert_topk_close(got.scores.numpy(), got.ids.numpy(), np.asarray(want.scores),
+                          np.asarray(want.ids), RTOL, ATOL)
+        _oracle(got.scores.numpy(), osc)
+    assert cached.stats.device_dispatches == 3
+    assert streaming.stats.device_dispatches == streaming.stats.blocks == 3 * 3
+
+
+@pytest.mark.parametrize("tile", [100, 126])
+def test_tile_not_a_multiple_of_4_matches_jax_engine(wide_rs, tile):
+    """The dense tiles are padded with zero dims to a multiple of 4 (once,
+    at build, for the cached S stack); the index's own tile, and so
+    tiles_scored, stay the reference's."""
+    R, S, pR, pS = wide_rs
+    jres = JaxIndex.build(S, JaxSpec(k=5, algorithm="iib", r_block=16, s_block=128, tile=tile,
+                                     use_kernel=True)).query(R)
+    spec = JoinSpec(k=5, algorithm="iib", r_block=16, s_block=128, tile=tile, use_kernel=True)
+    index = SparseKNNIndex.build(pS, spec, device="cpu")
+    assert index._kernel_stack.s_tiles.shape[2] == -(-tile // 4) * 4
+    res = index.query(pR)
+    assert_topk_close(res.scores.numpy(), res.ids.numpy(), np.asarray(jres.scores),
+                      np.asarray(jres.ids), RTOL, ATOL)
+    assert res.stats.tiles_scored == jres.stats.tiles_scored
+    out = knn_join(pR, pS, 5, algorithm="iib", r_block=16, s_block=128, tile=tile,
+                   use_kernel=True, device="cpu")
+    assert_topk_close(out.scores.numpy(), out.ids.numpy(), np.asarray(jres.scores),
+                      np.asarray(jres.ids), RTOL, ATOL)
 
 
 def test_index_reused_across_queries(rs):

@@ -14,6 +14,7 @@ from repro.kernels.knn_score.ops import dense_tiles_with_sentinel as jax_dense_t
 from repro.sparse.datagen import synthetic_sparse as jax_synthetic  # noqa: E402
 from repro.sparse.format import SparseBatch as JaxBatch  # noqa: E402
 from repro.sparse.format import tile_occupancy as jax_occupancy  # noqa: E402
+from repro_torch.core.index import dense_r_tiles  # noqa: E402
 from repro_torch.kernels.knn_score.ops import active_lists, dense_tiles_with_sentinel  # noqa: E402
 from repro_torch.sparse.datagen import synthetic_sparse  # noqa: E402
 from repro_torch.sparse.format import (  # noqa: E402
@@ -94,6 +95,17 @@ def test_dense_tiles_with_sentinel_byte_identical(n, dim, nnz, std, seed):
     want = np.asarray(jax_dense_tiles(ref, 128))
     assert got.shape == want.shape and got.tobytes() == want.tobytes()
     assert not got[-1].any()   # the sentinel tile is all zeros
+
+
+@pytest.mark.parametrize("tile", [100, 126, 127])
+def test_dense_tiles_pad_to_a_multiple_of_4(tile):
+    """Tiles whose width is not a multiple of 4 get zero dims up to one:
+    the real dims are dense_r_tiles' own, the rest and the sentinel zero."""
+    port = synthetic_sparse(40, dim=700, nnz_mean=20, nnz_std=5, seed=tile)
+    got = dense_tiles_with_sentinel(port, tile)
+    assert got.shape == (num_tiles(700, tile) + 1, 40, -(-tile // 4) * 4)
+    assert torch.equal(got[:-1, :, :tile], dense_r_tiles(port, tile))
+    assert not got[..., tile:].any() and not got[-1].any()
 
 
 @pytest.mark.parametrize("br,bs", [(16, 32), (64, 64), (24, 7)])

@@ -12,12 +12,17 @@ from repro.core.topk import TopKState as JaxState  # noqa: E402
 from repro.core.topk import merge_topk_states as jax_merge_states  # noqa: E402
 from repro.kernels.topk_merge.ops import topk_merge as jax_topk_merge  # noqa: E402
 from repro_torch.core.topk import TopKState, init_topk, merge_topk_states  # noqa: E402
-from repro_torch.kernels.knn_score.ops import knn_score  # noqa: E402
-from repro_torch.kernels.knn_topk.ops import knn_topk  # noqa: E402
+from repro_torch.kernels.knn_score.ops import (  # noqa: E402
+    _pad_rows, active_lists, dense_tiles_with_sentinel, knn_score)
+from repro_torch.kernels.knn_topk.kernel import knn_topk_fused  # noqa: E402
+from repro_torch.kernels.knn_topk.ops import (  # noqa: E402
+    column_meta, knn_topk, pad_state, score_then_merge)
 from repro_torch.kernels.topk_merge.kernel import insert_candidates, topk_merge_cuda  # noqa: E402
 from repro_torch.kernels.topk_merge.ops import topk_merge  # noqa: E402
 from repro_torch.kernels.topk_merge.ref import topk_merge_plain  # noqa: E402
 from repro_torch.sparse.datagen import synthetic_sparse  # noqa: E402
+from repro_torch.sparse.format import tile_occupancy  # noqa: E402
+from repro_torch.testing import doubled  # noqa: E402
 
 LEVELS = np.array([-np.inf, 0.125, 0.25, 0.5, 0.75, 1.0], np.float32)
 
@@ -54,6 +59,7 @@ def _same(got, want):
     (100, 16, 64, False),
     (32, 1, 50, False),
     (16, 128, 200, True),     # k = 128
+    (8, 200, 300, True),      # k > 128: the large-k kernel's route on CUDA
 ])
 def test_topk_merge_bit_identical(n, k, m, shared_ids):
     ss, si, cs, ci = _inputs(n + m, n, k, m, shared_ids)
@@ -77,7 +83,7 @@ def test_chunked_merge_equals_one_shot(chunk):
     _same((s, i), one)
 
 
-@pytest.mark.parametrize("seed,k", [(0, 5), (1, 16), (2, 128)])
+@pytest.mark.parametrize("seed,k", [(0, 5), (1, 16), (2, 128), (3, 150), (4, 256)])
 def test_merge_topk_states_bit_identical(seed, k):
     rng = np.random.default_rng(seed)
     a_s, a_i = _state(rng, 40, k)
@@ -107,3 +113,30 @@ def test_unfused_path_equals_knn_topk(nr, ns, dim, br, bs, k):
     got = topk_merge(st.scores, st.ids, torch.where(sc > 0, sc, float("-inf")),
                      torch.arange(ns, dtype=torch.int32), device="cpu")
     _same(got, (fused.scores, fused.ids))
+
+
+@pytest.mark.parametrize("k", [7, 150])
+def test_score_then_merge_windows_equal_one_shot(k):
+    """score_then_merge over a stack of 19 S blocks, walked in windows of 1
+    and 3 blocks, equals one window over the whole stack bit for bit (and,
+    at k <= 128, the fused kernel's plain version).  S holds tied rows, and
+    its blocks' active lists differ."""
+    nr, br, bs, dim = 40, 32, 16, 32768
+    R = synthetic_sparse(nr, dim=dim, nnz_mean=40, nnz_std=4, seed=41)
+    S = doubled(synthetic_sparse(150, dim=dim, nnz_mean=5, nnz_std=1, seed=42))
+    r_tiles = _pad_rows(dense_tiles_with_sentinel(R, 128), br)
+    s_tiles = _pad_rows(dense_tiles_with_sentinel(S, 128), bs)
+    active = torch.as_tensor(active_lists(tile_occupancy(R, 128).numpy(),
+                                          tile_occupancy(S, 128).numpy(), br, bs))
+    valid, ids = column_meta(S.num_vectors, s_tiles.shape[1], device="cpu")
+    init_s, init_i = pad_state(init_topk(nr, k, device="cpu"), r_tiles.shape[1])
+    args = (r_tiles, s_tiles, active, valid, ids, init_s, init_i)
+    assert s_tiles.shape[1] == 19 * bs and not (active[:, :1] == active).all()
+    one = score_then_merge(*args, block_r=br, block_s=bs)
+    pairs = r_tiles.shape[1] * bs
+    for blocks in (1, 3):
+        _same(score_then_merge(*args, block_r=br, block_s=bs, max_scores=blocks * pairs), one)
+    assert (one[1][:nr] >= 3 * bs).any()   # columns past the first windows entered
+    if k <= 128:
+        _same(knn_topk_fused(*args, block_r=br, block_s=bs)[:2], one)
+

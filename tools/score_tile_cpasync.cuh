@@ -62,8 +62,9 @@ __device__ __forceinline__ int live_tiles(const int* alist, int a_len, int senti
 
 struct Operands {
   const float* r_tiles;  // (T+1, n_r, tile)
-  const float* s_tiles;  // (T+1, n_s, tile)
+  const float* s_tiles;  // n_s columns of a (T+1, s_ld, tile) stack
   int n_r, n_s, tile;
+  int s_ld;              // the S stack's rows between consecutive tiles (>= n_s)
 };
 
 __device__ __forceinline__ void copy16(float* dst, const float* src, bool in) {
@@ -92,7 +93,7 @@ __device__ __forceinline__ void accumulate(float (&acc)[8][8], float* stage, con
   if (steps == 0) return;  // uniform
 
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const size_t r_stride = (size_t)op.n_r * op.tile, s_stride = (size_t)op.n_s * op.tile;
+  const size_t r_stride = (size_t)op.n_r * op.tile, s_stride = (size_t)op.s_ld * op.tile;
 
   int fa = 0, fd = 0;  // the next slice to fetch: list entry, first dim
   auto fetch = [&](int buf) {
