@@ -5,8 +5,9 @@
 
 Builds the five CUDA kernels of src/repro_torch/kernels/csrc (knn_topk,
 knn_score, topk_merge, flash_attn, wkv) and the first designs of knn_topk,
-knn_score and flash_attn's bf16 path kept in csrc/legacy (one nvcc each,
-all in parallel), then, at the paper's synthetic setting
+knn_score, flash_attn's bf16 path, wkv and topk_merge's k <= 128 path kept
+in csrc/legacy (one nvcc each, all in parallel), then, at the paper's
+synthetic setting
 (configs/paper_knn.py "synthetic-10k":
 n_r = n_s = 10,000, dim 10,000, mean nnz 120, k = 5, tile 128, r_block =
 s_block = 2048):
@@ -29,9 +30,10 @@ s_block = 2048):
            per S block, equal to phase 2's rows;
   phase 4  knn_score and topk_merge against their plain versions on the
            card: edge cases (block sizes 16 to 256, tile 256, ragged S; k
-           from 1 to 128, ragged M, ties, -inf, shared ids), then the
-           engine's shapes, with timings (knn_score also beside its first
-           design, bit for bit);
+           from 1 to 128, ragged M, ties, -inf, shared ids, M from 512 on
+           for topk_merge's split kernel), then the engine's shapes, with
+           timings; both also bit for bit against their first designs, and
+           timed beside them;
   phase 5  the unfused path at full width: per R block knn_score against
            all of S, the > 0 mask, topk_merge into a fresh state; equal to
            phase 2's query and to the float64 rows;
@@ -55,10 +57,14 @@ and, at the widths of models the repo supports (S = 4096):
            bf16 check's readings for three planted faults (each must fail
            it); then the op flash_sdpa at both widths, the main path,
            against the model's _sdpa with _causal_mask (f32);
-  phase 8  wkv against its plain version (edge cases: the reference
-           tests' shapes, ragged T, strong decay, bf16), then rwkv6-3b
-           (B 2, T 4096, H 40, K 64, chunk 128), timed; then the op wkv,
-           the main path, against the model's _chunked_wkv (f32).
+  phase 8  wkv against its plain version and, bit for bit, its first
+           design (csrc/legacy/wkv_v1.cu) (edge cases: the reference
+           tests' shapes, ragged T, strong decay, bf16, several waves),
+           then rwkv6-3b (B 2, T 4096, H 40, K 64, chunk 128): the three
+           kernels' grids, shared memory, registers and device times
+           (torch.profiler), timed beside the first design in turns, then
+           again at B 16; then the op wkv, the main path, against the
+           model's _chunked_wkv (f32).
 
 Every flash_attn and wkv comparison goes through repro_torch.testing
 (flash_close, wkv_close: one tolerance table with the card tests) and
@@ -370,7 +376,8 @@ def merge_inputs(dev, seed, n, k, m, shared_ids, kind):
 
 def phase4_merge_cases(dev):
     """topk_merge_cuda against topk_merge_plain, bit for bit."""
-    from repro_torch.kernels.topk_merge.kernel import topk_merge_cuda
+    from repro_torch.kernels.legacy import topk_merge_v1
+    from repro_torch.kernels.topk_merge.kernel import SPLIT_MIN_M, topk_merge_cuda
     from repro_torch.kernels.topk_merge.ref import topk_merge_plain
 
     cases = [  # n, k, m, shared ids, kind
@@ -379,6 +386,9 @@ def phase4_merge_cases(dev):
         (33, 8, 64, False, "ties"),
         (256, 16, 50, False, "neginf"),
         (40, 128, 200, True, "mixed"),
+        (300, 5, 1001, True, "mixed"),     # M >= 512 takes the split kernel
+        (64, 8, 1027, False, "ties"),      # the split kernel: ties across slices, rows off
+        (50, 128, 2000, True, "neginf"),   # the 16-byte grid (M not a multiple of 4)
         (2048, 5, 10_240, True, "mixed"),  # the unfused path's shapes
         (64, 150, 500, True, "ties"),      # k > 128: the large-k kernel
         (20, 1000, 3000, False, "mixed"),
@@ -389,8 +399,13 @@ def phase4_merge_cases(dev):
         torch.cuda.synchronize()
         want = topk_merge_plain(*args)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (n, k, m, kind)
-        print(f"phase 4 topk_merge n={n} k={k} m={m} {kind}{' shared-ids' if shared else ''}: "
-              f"bit-identical")
+        route = ("large-k" if k > 128 else "split" if m >= SPLIT_MIN_M else "warp-a-row")
+        if k <= 128:   # the first (warp-a-row) design, bit for bit
+            old = topk_merge_v1(*args)
+            assert torch.equal(got[0], old[0]) and torch.equal(got[1], old[1]), (n, k, m, kind)
+        print(f"phase 4 topk_merge n={n} k={k} m={m} {kind}{' shared-ids' if shared else ''} "
+              f"({route} kernel): bit-identical to the plain version"
+              f"{' and the first design' if k <= 128 else ''}")
 
 
 # Phase 7: flash attention at the widths of two models the repo supports,
@@ -612,6 +627,7 @@ def wkv_inputs(dev, shape, u_shape, shift, seed):
 def phase8_edge_cases(dev):
     """wkv_cuda against wkv_plain at small shapes; the worst (|Δ|, share of
     the tolerance used) in f32 and bf16."""
+    from repro_torch.kernels.legacy import wkv_v1
     from repro_torch.kernels.wkv.kernel import wkv_cuda
     from repro_torch.kernels.wkv.ref import wkv_plain
     from repro_torch.testing import wkv_close
@@ -628,25 +644,60 @@ def phase8_edge_cases(dev):
         (2, 512, 64, 128, -1.0, f32),    # strong decay, chunk 128: clamps at ±30
         (2, 256, 64, 128, -6.0, bf16),
         (2, 200, 32, 64, -1.0, bf16),    # bf16, ragged, strong decay
+        (300, 260, 64, 128, -1.0, f32),  # several waves of CTAs for both designs
+        (5, 100, 16, 16, -1.0, bf16),    # the smallest head and chunk, ragged
     ]
     worst = {f32: (0.0, 0.0), bf16: (0.0, 0.0)}
     for bh, t, kk, chunk, shift, dtype in cases:
         r, k, v, lw, u = wkv_inputs(dev, (bh, t, kk), (bh, kk), shift, seed=t * kk + chunk)
         r, k, v, lw = (x.to(dtype) for x in (r, k, v, lw))
         got = wkv_cuda(r, k, v, lw, u, chunk=chunk)
+        old = wkv_v1(r, k, v, lw, u, chunk=chunk)
         torch.cuda.synchronize()
+        assert torch.equal(got, old), ("wkv differs from its first design", bh, t, kk, chunk)
         err, used = wkv_close(got, wkv_plain(r, k, v, lw, u, chunk=chunk))
         worst[dtype] = tuple(map(max, worst[dtype], (err, used)))
         print(f"phase 8 wkv bh={bh} t={t} K={kk} chunk={chunk} shift={shift} "
-              f"{str(dtype)[6:]}: max|d|={err:.3e} tol used {used:.3f}")
+              f"{str(dtype)[6:]}: bit-identical to the first design, vs plain max|d|={err:.3e} "
+              f"tol used {used:.3f}")
     return worst
 
 
-def phase8_full_width(dev, name, reset_counts, counters):
-    """The kernel against its plain version at rwkv6-3b's width, with
-    timings; then the op wkv as the model calls it, f32 and bf16, against
-    the model's _chunked_wkv (f32) and the plain version (bf16)."""
-    from repro_torch.kernels.wkv.kernel import wkv_cuda
+def device_ms(fn, reps, part):
+    """{kernel: mean device ms a call} of the CUDA kernels whose name holds
+    ``part``, from torch.profiler over ``reps`` calls of ``fn``; empty when
+    the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        total = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
+        m = re.search(r"(\w*%s\w*)" % part, evt.key)
+        if m and total:
+            out[m.group(1)] = out.get(m.group(1), 0.0) + total / 1e3 / reps
+    return out
+
+
+def wkv_flops(bh, t, kk, chunk):
+    """Per chunk and head: the strictly causal scores and their product
+    with v (C(C-1)/2 pairs each), the state apply and the state update (C·K²)."""
+    return bh * -(-t // chunk) * (2.0 * kk * chunk * (chunk - 1) + 4.0 * chunk * kk * kk)
+
+
+def phase8_full_width(dev, name, usage, reset_counts, counters):
+    """The kernels against their plain version and their first design at
+    rwkv6-3b's width, with timings (the first design in turns), launch
+    shapes and each kernel's device time; then B 16; then the op wkv as
+    the model calls it, f32 and bf16, against the model's _chunked_wkv
+    (f32) and the plain version (bf16)."""
+    from repro_torch.kernels.legacy import wkv_v1
+    from repro_torch.kernels.wkv.kernel import launch_shapes, wkv_cuda
     from repro_torch.kernels.wkv.ops import wkv
     from repro_torch.kernels.wkv.ref import wkv_plain
     from repro_torch.models.rwkv6 import _chunked_wkv
@@ -657,31 +708,69 @@ def phase8_full_width(dev, name, reset_counts, counters):
     flat = [x.transpose(1, 2).reshape(b * h, t, kk).contiguous() for x in (r, k, v, lw)]
     uf = u[None].expand(b, h, kk).reshape(b * h, kk).contiguous()
     got = wkv_cuda(*flat, uf, chunk=chunk)
+    old = wkv_v1(*flat, uf, chunk=chunk)
     torch.cuda.synchronize()
+    v1_same = torch.equal(got, old)
+    v1_err = max_abs_err(got, old)
+    del old
     want = wkv_plain(*flat, uf, chunk=chunk)
     err, used = wkv_close(got, want)
     out_max = float(want.abs().max())
-    ms = cuda_ms(lambda: wkv_cuda(*flat, uf, chunk=chunk), reps=10)
+    turns = [cuda_ms(lambda: fn(*flat, uf, chunk=chunk), reps=10)
+             for fn in (wkv_cuda, wkv_v1, wkv_v1, wkv_cuda)]
+    ms, v1_ms = turns[0], turns[1]
     plain_ms = cuda_ms(lambda: wkv_plain(*flat, uf, chunk=chunk), reps=3)
     flat16 = [x.bfloat16() for x in flat]
     got16 = wkv_cuda(*flat16, uf, chunk=chunk)
+    old16 = wkv_v1(*flat16, uf, chunk=chunk)
+    torch.cuda.synchronize()
+    v1_same16 = torch.equal(got16, old16)
     err16, used16 = wkv_close(got16, wkv_plain(*flat16, uf, chunk=chunk))
-    del got16
+    del got16, old16
     ms16 = cuda_ms(lambda: wkv_cuda(*flat16, uf, chunk=chunk), reps=10)
-    n_chunk_heads = b * h * -(-t // chunk)
-    # per chunk and head: the strictly causal scores and their product with
-    # v (C(C-1)/2 pairs each), the state apply and the state update (C·K²)
-    flops = n_chunk_heads * (2.0 * kk * chunk * (chunk - 1) + 4.0 * chunk * kk * kk)
+    v1_ms16 = cuda_ms(lambda: wkv_v1(*flat16, uf, chunk=chunk), reps=10)
+    flops = wkv_flops(b * h, t, kk, chunk)
     wkv_bytes = nbytes(*flat, uf, got)
+    scratch_bytes = 4 * 4 * b * h * -(-t // chunk) * kk * kk   # U written, read, S written, read
     bound_ms, bound_by = bound(flops, wkv_bytes, name)
-    print(f"phase 8 wkv rwkv6-3b: B={b} T={t} H={h} K={kk} chunk={chunk} CTAs {b * h} "
+    print(f"phase 8 wkv rwkv6-3b: B={b} T={t} H={h} K={kk} chunk={chunk} "
           f"max|d|={err:.3e} tol used {used:.3f} (max|out| {out_max:.3f}); bf16 "
-          f"max|d|={err16:.3e} tol used {used16:.3f}")
-    print(f"  wkv kernel {ms:.3f} ms/launch (bf16 {ms16:.3f} ms), plain {plain_ms:.3f} ms, "
-          f"no library call, "
-          f"bound {bound_ms:.4f} ms ({bound_by}: {flops:.3e} flop, {wkv_bytes:.3e} B), "
-          f"{flops / ms / 1e9:.2f} TFLOP/s")
-    del want, got
+          f"max|d|={err16:.3e} tol used {used16:.3f}; vs the first design bit-identical "
+          f"f32 {v1_same} (max|d| {v1_err:.3e}), bf16 {v1_same16}")
+    assert v1_same and v1_same16, "wkv differs from its first design"
+    for kname, (ctas, threads, smem) in launch_shapes(b * h, t, kk, chunk).items():
+        part = kname if kname == "wkv_carry_kernel" else f"{kname}ILi{chunk}ELi{kk}Ef"
+        print(f"  {kname}: {ctas} CTAs of {threads} threads, {smem} B dynamic shared memory, "
+              f"{usage_of(usage, part)} (f32)")
+    print(f"  first design: {b * h} CTAs of 256 threads, "
+          f"{usage_of(usage, f'wkv_kernelILi{chunk}ELi{kk}Ef')} (f32)")
+    per_kernel = device_ms(lambda: wkv_cuda(*flat, uf, chunk=chunk), 5, "wkv_")
+    print("  device ms a call (torch.profiler): " + (", ".join(
+        f"{key} {val:.4f}" for key, val in sorted(per_kernel.items())) or "not measured"))
+    print(f"  wkv kernels {ms:.3f} ms/call (bf16 {ms16:.3f} ms), first design {v1_ms:.3f} ms "
+          f"(bf16 {v1_ms16:.3f} ms), in turns {'; '.join(f'{x:.3f}' for x in turns)}; plain "
+          f"{plain_ms:.3f} ms, no library call, bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{flops:.3e} flop, {wkv_bytes:.3e} B; scratch {scratch_bytes:.3e} B more), "
+          f"{flops / ms / 1e9:.2f} TFLOP/s (first design {flops / v1_ms / 1e9:.2f})")
+    del want, got, flat16
+
+    # B 16: the first design fills the card (640 CTAs); the gain is then the per-SM rate
+    b16 = 16
+    f16 = wkv_inputs(dev, (b16 * h, t, kk), (b16 * h, kk), -6.0, seed=16)
+    got = wkv_cuda(*f16, chunk=chunk)
+    old = wkv_v1(*f16, chunk=chunk)
+    torch.cuda.synchronize()
+    same16 = torch.equal(got, old)
+    del got, old
+    turns16 = [cuda_ms(lambda: fn(*f16, chunk=chunk), reps=3)
+               for fn in (wkv_cuda, wkv_v1, wkv_v1, wkv_cuda)]
+    flops16 = wkv_flops(b16 * h, t, kk, chunk)
+    print(f"phase 8 wkv rwkv6-3b B={b16} (BH {b16 * h}): bit-identical to the first design "
+          f"{same16}; in turns (kernels, first design, first design, kernels) "
+          f"{'; '.join(f'{x:.3f}' for x in turns16)} ms/call; {flops16 / turns16[0] / 1e9:.2f} "
+          f"TFLOP/s against {flops16 / turns16[1] / 1e9:.2f}")
+    assert same16, "wkv differs from its first design at B 16"
+    del f16
 
     reset_counts()
     t0 = time.perf_counter()
@@ -696,6 +785,7 @@ def phase8_full_width(dev, name, reset_counts, counters):
         assert out.shape == (b, t, h, kk) and out.dtype == dtype
         assert bool(torch.isfinite(out).all())
     op_err, op_used = wkv_close(out32, _chunked_wkv(r, k, v, lw, u, chunk=chunk))
+    flat16 = [x.bfloat16() for x in flat]
     want16 = wkv_plain(*flat16, uf, chunk=chunk).reshape(b, h, t, kk).transpose(1, 2)
     op_err16, op_used16 = wkv_close(out16, want16)
     print(f"phase 8 wkv op rwkv6-3b: f32 vs _chunked_wkv max|d|={op_err:.3e} tol used "
@@ -726,7 +816,7 @@ def main():
     from repro_torch.kernels.knn_score.ref import knn_score_plain
     from repro_torch.kernels.knn_topk.kernel import TILE_ROWS, knn_topk_fused, split_ranges
     from repro_torch.kernels.knn_topk.ref import knn_topk_plain
-    from repro_torch.kernels.legacy import knn_score_v1, knn_topk_v1
+    from repro_torch.kernels.legacy import knn_score_v1, knn_topk_v1, topk_merge_v1
     from repro_torch.kernels.topk_merge.kernel import insert_candidates, topk_merge_cuda
     from repro_torch.kernels.topk_merge.ops import topk_merge
     from repro_torch.kernels.topk_merge.ref import topk_merge_plain
@@ -896,17 +986,28 @@ def main():
     got_m, want_m = topk_merge_cuda(*m_args), topk_merge_plain(*m_args)
     assert torch.equal(got_m[0], want_m[0]) and torch.equal(got_m[1], want_m[1])
     merge_err = max_abs_err(got_m[0], want_m[0])
-    merge_ms = cuda_ms(lambda: topk_merge_cuda(*m_args), reps=20)
+    old_m = topk_merge_v1(*m_args)
+    v1_merge_same = torch.equal(got_m[0], old_m[0]) and torch.equal(got_m[1], old_m[1])
+    assert v1_merge_same, "topk_merge differs from its first design"
+    del old_m
+    # the split kernel and the first design in turns
+    merge_turns = [cuda_ms(lambda: fn(*m_args), reps=20)
+                   for fn in (topk_merge_cuda, topk_merge_v1, topk_merge_v1, topk_merge_cuda)]
+    merge_ms, v1_merge_ms = merge_turns[0], merge_turns[1]
     merge_plain_ms = cuda_ms(lambda: topk_merge_plain(*m_args), reps=5)
     merge_library_ms = cuda_ms(lambda: torch.topk(torch.cat([fresh.scores, cand], 1), K, dim=1),
                                reps=20)
     merge_bytes = nbytes(*m_args, *got_m)
     merge_bound_ms, merge_bound_by = bound(cand.numel() * 1.0, merge_bytes, name)
     print(f"phase 4 topk_merge engine shapes: N={cand.shape[0]} M={cand.shape[1]} k={K} "
-          f"bit-identical")
+          f"bit-identical to the plain version and to the first design; split kernel "
+          f"{cand.shape[0]} CTAs of 8 warps, {usage_of(usage, 'topk_merge_split_kernelILi1E')}")
     print(f"  topk_merge kernel {merge_ms:.4f} ms/launch, plain {merge_plain_ms:.3f} ms, "
           f"cat+topk {merge_library_ms:.3f} ms, bound {merge_bound_ms:.4f} ms "
           f"({merge_bound_by}: {merge_bytes:.3e} B)")
+    print(f"  topk_merge in turns (split, first design, first design, split): "
+          f"{'; '.join(f'{x:.4f}' for x in merge_turns)} ms/launch; first design "
+          f"{v1_merge_ms / merge_ms:.2f}x the split kernel's time")
     del sc, cand, m_args, got_m, want_m
 
     # phase 5: the unfused path at full width, one R block at a time
@@ -1013,8 +1114,8 @@ def main():
 
     # phase 8: wkv at rwkv6-3b's width
     wkv_edge = phase8_edge_cases(dev)
-    wkv_line, (wkv_err16, wkv_used, wkv_used16) = phase8_full_width(dev, name, reset_counts,
-                                                                      counters)
+    wkv_line, (wkv_err16, wkv_used, wkv_used16) = phase8_full_width(dev, name, usage,
+                                                                      reset_counts, counters)
     wkv_line["max_abs_err"] = max(wkv_line["max_abs_err"], wkv_edge[torch.float32][0])
     print(f"phase 8 worst: f32 max|d| {wkv_line['max_abs_err']:.3e} (tol used "
           f"{max(wkv_used, wkv_edge[torch.float32][1]):.3f}), bf16 max|d| "

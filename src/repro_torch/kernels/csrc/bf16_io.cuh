@@ -19,3 +19,17 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
 // One f32 value into the output's type, rounded to nearest.
 __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+
+// Four f32 values into four consecutive elements (aligned as for load4),
+// each rounded to nearest as store1 rounds it.
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+  const __nv_bfloat162 a = __halves2bfloat162(__float2bfloat16(x.x), __float2bfloat16(x.y));
+  const __nv_bfloat162 b = __halves2bfloat162(__float2bfloat16(x.z), __float2bfloat16(x.w));
+  uint2 raw;
+  raw.x = *reinterpret_cast<const unsigned*>(&a);
+  raw.y = *reinterpret_cast<const unsigned*>(&b);
+  *reinterpret_cast<uint2*>(p) = raw;
+}

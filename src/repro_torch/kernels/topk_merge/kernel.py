@@ -12,10 +12,13 @@ M insertion passes of (N, M) candidates into an (N, k) descending state:
 package's; tests hold the kernel and ``ref.topk_merge_plain`` against it.
 ``topk_merge_cuda`` launches the hand-written kernels of
 ``../csrc/topk_merge.cu`` on CUDA tensors, and runs
-``ref.topk_merge_plain`` on CPU tensors: for k <= 128 one warp a row (the
-body of ``../csrc/topk_insert.cuh``, shared with the fused knn_topk
-kernel), for any larger k one CTA a row that writes each entry to its rank
-in the stable sort.  Nothing falls back: a CUDA tensor that the kernels
+``ref.topk_merge_plain`` on CPU tensors.  For k <= 128: one warp a row
+when M < ``SPLIT_MIN_M`` (the body of ``../csrc/topk_insert.cuh``, shared
+with the fused knn_topk kernel), else one CTA of eight warps a row, each
+warp walking an eighth of the row in column order and the eight partial
+states merged in that order (``split_merge_model`` is its plain model).
+For any larger k one CTA a row that writes each entry to its rank in the
+stable sort.  Nothing falls back: a CUDA tensor that the kernels
 cannot take raises.  ``topk_merge_cuda.launches`` counts the launches.
 """
 from __future__ import annotations
@@ -28,6 +31,7 @@ from repro_torch.kernels._build import check, launch
 from repro_torch.kernels.topk_merge.ref import topk_merge_plain
 
 _ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 4
+SPLIT_MIN_M = 512   # csrc/topk_merge.cu kSplitMinM
 
 
 def insert_candidates(state_scores, state_ids, cand_scores, cand_ids):

@@ -3,10 +3,14 @@
 ``wkv_cuda`` takes the arguments of the JAX package's ``wkv_pallas``:
 r, k, v and lw (BH, T, K), u (BH, K) and the chunk.  T need not be a
 multiple of the chunk: the kernel reads tokens past T as zeros, as the
-reference's padding.  On CUDA tensors it launches the hand-written kernel
-of ``../csrc/wkv.cu``; on CPU tensors it runs the plain version
-(``ref.wkv_plain``).  Nothing falls back: a CUDA tensor that the kernel
-cannot take raises.  ``wkv_cuda.launches`` counts the kernel's launches.
+reference's padding.  On CUDA tensors it launches the hand-written kernels
+of ``../csrc/wkv.cu``, three a call: the chunk states (ltot and U_n =
+k_carry^T v of every chunk, into scratch that the wrapper allocates), the
+carry (an elementwise scan over the chunks that turns U_n into the state
+before chunk n, in place) and the outputs (every chunk at once).  On CPU
+tensors it runs the plain version (``ref.wkv_plain``).  Nothing falls
+back: a CUDA tensor that the kernels cannot take raises.
+``wkv_cuda.launches`` counts calls that launched, one a call.
 """
 from __future__ import annotations
 
@@ -14,13 +18,26 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._build import check, launch
+from repro_torch.kernels._build import check, launch, load
 from repro_torch.kernels.wkv.ref import wkv_plain
 
 HEAD_SIZES = (16, 32, 64)
 CHUNKS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5
+_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 5
+KERNELS = ("wkv_state_kernel", "wkv_carry_kernel", "wkv_out_kernel")
+
+
+def launch_shapes(bh: int, t: int, kk: int, chunk: int) -> dict:
+    """{kernel: (CTAs, threads a CTA, dynamic shared memory bytes)} of one
+    f32 call at these sizes, as the launcher of ``../csrc/wkv.cu`` sets them
+    (the state and output kernels are persistent: as many CTAs as fit)."""
+    fn = load("wkv", _ARGTYPES).wkv_shape
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    vals = (ctypes.c_int * 9)()
+    if fn(bh, t, kk, chunk, vals) != 0:
+        raise ValueError(f"no wkv kernel for head size {kk} and chunk {chunk}")
+    return {name: tuple(vals[3 * i:3 * i + 3]) for i, name in enumerate(KERNELS)}
 
 
 def wkv_cuda(
@@ -55,9 +72,13 @@ def wkv_cuda(
     out = torch.empty_like(r)
     if bh * t == 0:
         return out
+    n_chunks = -(-t // chunk)
+    states = torch.empty((bh, n_chunks, kk, kk), dtype=torch.float32, device=dev)
+    ltot = torch.empty((bh, n_chunks, kk), dtype=torch.float32, device=dev)
     launch("wkv", _ARGTYPES, dev,
            r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(), u.data_ptr(),
-           out.data_ptr(), _DTYPES[r.dtype], bh, t, kk, chunk)
+           out.data_ptr(), states.data_ptr(), ltot.data_ptr(), _DTYPES[r.dtype], bh, t, kk,
+           chunk)
     wkv_cuda.launches += 1
     return out
 

@@ -33,6 +33,7 @@ from repro_torch.kernels.knn_topk.ops import column_meta, pad_state, score_then_
 from repro_torch.kernels.knn_topk.ref import knn_topk_plain  # noqa: E402
 from repro_torch.kernels.topk_merge.kernel import insert_candidates, topk_merge_cuda  # noqa: E402
 from repro_torch.kernels.topk_merge.ref import topk_merge_plain  # noqa: E402
+from repro_torch.kernels.legacy import topk_merge_v1, wkv_v1  # noqa: E402
 from repro_torch.kernels.wkv.kernel import wkv_cuda  # noqa: E402
 from repro_torch.kernels.wkv.ops import wkv  # noqa: E402
 from repro_torch.kernels.wkv.ref import wkv_plain  # noqa: E402
@@ -262,6 +263,36 @@ def test_topk_merge_kernel_matches_plain(cuda, n, k, m, shared_ids, ties):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("n,k,m,shared_ids,ties,offset", [
+    (300, 5, 1001, True, False, 0),     # M not a multiple of 4: rows off the 16-byte grid
+    (64, 5, 1001, False, True, 1),      # every candidate tied: ties across slices
+    (100, 33, 512, True, True, 3),      # the smallest M of the split kernel
+    (50, 128, 2000, False, False, 2),
+    (2048, 5, 10_240, True, False, 0),  # the unfused path's shapes
+    (2048, 5, 10_240, True, True, 0),
+])
+def test_topk_merge_split_kernel_matches_plain_and_first_design(cuda, n, k, m, shared_ids,
+                                                                ties, offset):
+    """M >= 512 takes the split kernel (a CTA of eight warps a row); it
+    equals the plain version and the warp-a-row first design bit for bit.
+    ``offset`` starts the candidate scores 4 * offset bytes past a 16-byte
+    boundary."""
+    args = _merge_inputs(cuda, n + k + m, n, k, m, shared_ids, ties)
+    if offset:
+        padded = torch.empty(n * m + offset, dtype=torch.float32, device=cuda)
+        padded[offset:] = args[2].reshape(-1)
+        args[2] = padded[offset:].view(n, m)
+        assert args[2].data_ptr() % 16 == 4 * offset
+    before = topk_merge_cuda.launches
+    got = topk_merge_cuda(*args)
+    old = topk_merge_v1(*args)
+    torch.cuda.synchronize()
+    assert topk_merge_cuda.launches == before + 1
+    want = topk_merge_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(old[0], want[0]) and torch.equal(old[1], want[1])
+
+
 @pytest.mark.parametrize("n,k,m,shared_ids,ties", [
     (64, 129, 300, True, False),     # the smallest k of the large-k kernel; shared (M,) ids
     (100, 150, 500, False, True),    # all candidates equal: ties
@@ -457,7 +488,7 @@ def _wkv_inputs(dev, shape, u_shape, shift, dtype, seed=0):
     return [x.to(dev, dtype) for x in (r, k, v, lw)] + [u.to(dev)]
 
 
-@pytest.mark.parametrize("bh,t,kk,chunk,shift,dtype", [
+WKV_CASES = [  # bh, t, head size, chunk, decay shift, dtype
     (2, 64, 32, 16, -4.0, torch.float32),
     (3, 128, 64, 32, -4.0, torch.float32),
     (1, 256, 64, 128, -4.0, torch.float32),
@@ -465,7 +496,10 @@ def _wkv_inputs(dev, shape, u_shape, shift, dtype, seed=0):
     (2, 96, 64, 64, -4.0, torch.float32),      # ragged T
     (2, 128, 64, 32, -1.0, torch.float32),     # strong decay: the clamps bite
     (2, 300, 64, 128, -6.0, torch.bfloat16),   # bf16, ragged
-])
+]
+
+
+@pytest.mark.parametrize("bh,t,kk,chunk,shift,dtype", WKV_CASES)
 def test_wkv_kernel_matches_plain(cuda, bh, t, kk, chunk, shift, dtype):
     r, k, v, lw, u = _wkv_inputs(cuda, (bh, t, kk), (bh, kk), shift, dtype, seed=t + kk)
     before = wkv_cuda.launches
@@ -475,6 +509,21 @@ def test_wkv_kernel_matches_plain(cuda, bh, t, kk, chunk, shift, dtype):
     assert got.dtype == dtype and got.shape == r.shape
     want = wkv_plain(r, k, v, lw, u, chunk=chunk)
     wkv_close(got, want)
+
+
+@pytest.mark.parametrize("bh,t,kk,chunk,shift,dtype", WKV_CASES + [
+    (300, 260, 64, 128, -1.0, torch.float32),   # several waves of CTAs for both designs
+    (40, 2048, 64, 128, -6.0, torch.bfloat16),  # 640 output CTAs, ~5 waves on 132 SMs
+    (5, 200, 32, 16, -1.0, torch.bfloat16),
+])
+def test_wkv_kernel_is_the_first_design_bit_for_bit(cuda, bh, t, kk, chunk, shift, dtype):
+    """The chunk-parallel kernels keep the first design's arithmetic order."""
+    r, k, v, lw, u = _wkv_inputs(cuda, (bh, t, kk), (bh, kk), shift, dtype, seed=t + kk + bh)
+    got = wkv_cuda(r, k, v, lw, u, chunk=chunk)
+    old = wkv_v1(r, k, v, lw, u, chunk=chunk)
+    torch.cuda.synchronize()
+    assert got.dtype == old.dtype == dtype
+    assert torch.equal(got, old), float((got.float() - old.float()).abs().max())
 
 
 @pytest.mark.parametrize("shift", [-4.0, -1.0])

@@ -140,3 +140,66 @@ def test_score_then_merge_windows_equal_one_shot(k):
     if k <= 128:
         _same(knn_topk_fused(*args, block_r=br, block_s=bs)[:2], one)
 
+
+
+# The k <= 128 CUDA kernel for M >= SPLIT_MIN_M splits each row into eight
+# slices (csrc/topk_merge.cu, topk_merge_split_kernel): each slice merged
+# into an empty state of its own, then the incoming state takes the eight
+# partial states in slice order.  A plain model of that split, held to the
+# plain version and to the JAX package bit for bit.
+SPLIT_WARPS = 8
+
+
+def _split_slices(m, first_aligned):
+    """The kernel's slices [lo, hi): 0, then first_aligned + w * len, len a
+    multiple of 4 (the row's 16-byte grid starts at column first_aligned)."""
+    length = (-(-m // SPLIT_WARPS) + 3) & ~3
+    edges = ([0] + [min(m, first_aligned + w * length) for w in range(1, SPLIT_WARPS)]
+             + [m])
+    return list(zip(edges[:-1], edges[1:]))
+
+
+def _split_merge_model(ss, si, cs, ci, first_aligned):
+    n, m = cs.shape
+    ids = ci[None, :].expand(n, m) if ci.dim() == 1 else ci
+    empty = (torch.full_like(ss, float("-inf")), torch.full_like(si, -1))
+    s, i = ss, si
+    for lo, hi in _split_slices(m, first_aligned):   # in slice order: earlier slices win ties
+        part = insert_candidates(*empty, cs[:, lo:hi], ids[:, lo:hi])
+        s, i = insert_candidates(s, i, *part)
+    return s, i
+
+
+def test_split_slices_cover_the_row_on_its_grid():
+    for m in (1001, 1024, 1027, 10_240):
+        for a0 in range(4):
+            sl = _split_slices(m, a0)
+            assert sl[0][0] == 0 and sl[-1][1] == m
+            assert all(hi == lo2 for (_, hi), (lo2, _) in zip(sl, sl[1:]))
+            assert all((lo - a0) % 4 == 0 for lo, hi in sl[1:] if lo < m)
+
+
+@pytest.mark.parametrize("n,k,m,shared_ids,kind,first_aligned", [
+    (24, 5, 1001, True, "mixed", 0),     # M not a multiple of 4 or of 8
+    (24, 5, 1001, False, "mixed", 3),    # a row start off the 16-byte grid
+    (16, 8, 1024, True, "ties", 0),      # every candidate tied: ties across slices
+    (16, 33, 1027, False, "ties", 2),
+    (20, 16, 1100, True, "neginf", 1),   # most columns -inf
+    (8, 128, 1031, False, "mixed", 0),   # k = 128
+])
+def test_split_model_bit_identical(n, k, m, shared_ids, kind, first_aligned):
+    rng = np.random.default_rng(n * m + k)
+    ss, si = _state(rng, n, k)
+    if kind == "ties":
+        cs = np.full((n, m), 0.5, np.float32)
+    else:
+        cs = np.where(rng.random((n, m)) < 0.5, rng.choice(LEVELS, size=(n, m)),
+                      rng.random((n, m))).astype(np.float32)
+        if kind == "neginf":
+            cs[rng.random((n, m)) < 0.9] = -np.inf
+    ci = (np.arange(1000, 1000 + m, dtype=np.int32) if shared_ids
+          else rng.integers(1000, 5000, (n, m)).astype(np.int32))
+    t = [torch.from_numpy(a) for a in (ss, si, cs, ci)]
+    want = jax_topk_merge(*(jnp.asarray(a) for a in (ss, si, cs, ci)), interpret=True)
+    _same(_split_merge_model(*t, first_aligned), want)
+    _same(topk_merge_plain(*t), want)

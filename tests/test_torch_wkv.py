@@ -17,7 +17,8 @@ from repro.models.rwkv6 import _chunked_wkv as jax_chunked_wkv  # noqa: E402
 from repro_torch.kernels.wkv.kernel import wkv_cuda  # noqa: E402
 from repro_torch.kernels.wkv.ops import wkv  # noqa: E402
 from repro_torch.kernels.wkv.ref import wkv_plain  # noqa: E402
-from repro_torch.models.rwkv6 import _chunked_wkv  # noqa: E402
+from repro_torch.models.rwkv6 import CLAMP, _chunked_wkv  # noqa: E402
+from repro_torch.testing import wkv_close  # noqa: E402
 
 
 def _inputs(shape, u_shape, seed=0, decay_shift=-4.0):
@@ -109,3 +110,54 @@ def test_cpu_tensors_launch_nothing():
     wkv(*(x[None].transpose(1, 2) for x in (r, k, v, lw)), u, chunk=16, device="cpu")
     assert wkv_cuda.launches == before
     torch.testing.assert_close(out, wkv_plain(r, k, v, lw, u, chunk=16), rtol=0, atol=0)
+
+
+def _split_model(r, k, v, lw, u, chunk):
+    """The CUDA kernel's three steps (csrc/wkv.cu) in plain torch, f32:
+    every chunk's ltot and U_n = k_carry^T v; the carry as an elementwise
+    scan over the chunks, S_{n+1} = S_n e^{ltot_n} (rows) + U_n from S_0 =
+    0, keeping the state before each chunk; then every chunk's output from
+    its own tiles and S_n."""
+    bh, t, kk = r.shape
+    pad = (-t) % chunk
+    n = (t + pad) // chunk
+    r, k, v, lw = (torch.nn.functional.pad(x.float(), (0, 0, 0, pad)).reshape(bh, n, chunk, kk)
+                   for x in (r, k, v, lw))
+    lcum_inc = torch.cumsum(lw, dim=2)
+    ltot = lcum_inc[:, :, -1]                                          # (BH, N, K)
+    k_carry = k * torch.exp(torch.clamp(ltot[:, :, None] - lcum_inc, max=CLAMP))
+    upd = k_carry.transpose(-1, -2) @ v                                # (BH, N, K, K)
+    states, s = [], torch.zeros((bh, kk, kk))
+    for i in range(n):
+        states.append(s)
+        s = s * torch.exp(ltot[:, i])[:, :, None] + upd[:, i]
+    states = torch.stack(states, dim=1)                                # S_n
+    ri = r * torch.exp(lcum_inc - lw)
+    kj = k * torch.exp(torch.clamp(-lcum_inc, -CLAMP, CLAMP))
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool), -1)
+    scores = torch.where(mask, ri @ kj.transpose(-1, -2), 0.0)
+    diag = torch.sum(r * (k * u.float()[:, None, None, :]), dim=3, keepdim=True)
+    out = (scores @ v + diag * v) + ri @ states
+    return out.reshape(bh, n * chunk, kk)[:, :t]
+
+
+@pytest.mark.parametrize("bh,t,kk,chunk,shift", [
+    (2, 64, 32, 16, -4.0),     # the reference tests' shapes
+    (3, 128, 64, 32, -4.0),
+    (1, 256, 64, 128, -4.0),
+    (2, 128, 16, 128, -4.0),
+    (2, 96, 64, 64, -4.0),     # ragged T
+    (3, 100, 16, 32, -4.0),
+    (2, 256, 32, 64, -1.0),    # strong decay: the ±30 clamps bite
+    (2, 200, 64, 128, -1.0),   # ragged, strong decay
+    (2, 512, 16, 16, -1.0),    # 32 chunks of 16
+])
+def test_split_model_matches_plain_and_pallas(bh, t, kk, chunk, shift):
+    arrays = _inputs((bh, t, kk), (bh, kk), seed=t * kk + chunk, decay_shift=shift)
+    got = _split_model(*_torch(arrays), chunk=chunk)
+    want = wkv_plain(*_torch(arrays), chunk=chunk)
+    wkv_close(got, want)
+    pad = (-t) % chunk
+    padded = [np.pad(a, ((0, 0), (0, pad), (0, 0))) for a in arrays[:4]] + [arrays[4]]
+    pallas = np.asarray(wkv_pallas(*_jax(padded), chunk=chunk))[:, :t]
+    wkv_close(got, torch.from_numpy(pallas.copy()))
