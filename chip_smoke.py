@@ -5,8 +5,8 @@
 
 Builds the five CUDA kernels of src/repro_torch/kernels/csrc (knn_topk,
 knn_score, topk_merge, flash_attn, wkv) and the first designs of knn_topk,
-knn_score, flash_attn's bf16 path, wkv and topk_merge's k <= 128 path kept
-in csrc/legacy (one nvcc each, all in parallel), then, at the paper's
+knn_score, flash_attn (f32 and bf16), wkv and topk_merge's k <= 128 path
+kept in csrc/legacy (one nvcc each, all in parallel), then, at the paper's
 synthetic setting
 (configs/paper_knn.py "synthetic-10k":
 n_r = n_s = 10,000, dim 10,000, mean nnz 120, k = 5, tile 128, r_block =
@@ -46,20 +46,27 @@ s_block = 2048):
 and, at the widths of models the repo supports (S = 4096):
 
   phase 7  flash_attn against its plain version (edge cases: causal or
-           not, window, bf16 at every head width, Sq != Skv, Sq < 16,
-           ragged 96, GQA g = 1, 2, 8, 10, hd 256), the bf16 kernel's
-           tensor-core instructions (HMMA/HGMMA in cuobjdump -sass, which
-           must be nonzero) and ptxas's registers and spills per head
-           width, then qwen3-0.6b (H 16, KVH 8, hd 128, causal, B 2)
-           and recurrentgemma-2b (H 10, KVH 1, hd 256, window 2048, B 1)
-           in f32 and bf16, timed beside scaled_dot_product_attention
-           and, in bf16, beside the first (fp32-FMA) bf16 design, with the
-           bf16 check's readings for three planted faults (each must fail
-           it); then the op flash_sdpa at both widths, the main path,
+           not, window, f32 and bf16 at every head width the kernels take
+           and at 1, 48 and 80, which the wrapper pads, Sq != Skv,
+           Sq < 16, Skv not a multiple of 8, ragged 96, GQA g = 1, 2, 8,
+           10, windows whose edge falls inside a q tile, rows with no
+           visible key), both tensor-core kernels' instructions
+           (HMMA/HGMMA in cuobjdump -sass, which must be nonzero) and
+           ptxas's registers and spills per head width, then qwen3-0.6b
+           (H 16, KVH 8, hd 128, causal, B 2) and recurrentgemma-2b (H 10,
+           KVH 1, hd 256, window 2048, B 1) in f32 (3xTF32) and bf16,
+           each timed beside scaled_dot_product_attention and, in turns,
+           the first (fp32-FMA) design, with the f32 check's reading for
+           an output of one TF32 product (the plain version with TF32
+           matmuls) and the bf16 check's for three planted faults (each
+           must fail); then the op flash_sdpa at both widths and at the
+           reduced configs' (hd 16, H 4, KVH 2, f32), the main path,
            against the model's _sdpa with _causal_mask (f32);
   phase 8  wkv against its plain version and, bit for bit, its first
            design (csrc/legacy/wkv_v1.cu) (edge cases: the reference
            tests' shapes, ragged T, strong decay, bf16, several waves),
+           and at chunk 8 (the reduced configs', which the first design
+           lacks) against its plain version only,
            then rwkv6-3b (B 2, T 4096, H 40, K 64, chunk 128): the three
            kernels' grids, shared memory, registers and device times
            (torch.profiler), timed beside the first design in turns, then
@@ -72,7 +79,7 @@ prints the largest share of its tolerance that any element used.
 
 Prints the card's name and power limit, the build time, each phase's
 numbers, one JSON line describing all five kernels (flash_attn twice: its
-f32 kernel and its bf16 tensor-core kernel), and as its last line
+f32 3xTF32 kernel and its bf16 kernel), and as its last line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero; with
 no CUDA device it exits 1 and prints no result.
 """
@@ -116,11 +123,15 @@ def cuda_ms(fn, reps):
 
 def peaks(name, dtype=torch.float32):
     """(FLOP/s for ``dtype``, bytes/s) published for the card (NVIDIA data
-    sheets): the fp32 rate outside the tensor cores, the dense bf16 rate."""
+    sheets): the fp32 rate outside the tensor cores, the dense bf16 rate,
+    and for "tf32" the dense TF32 tensor-core rate."""
     pcie = "PCIe" in name
+    byte_rate = 2.0e12 if pcie else 3.35e12
     if dtype == torch.bfloat16:
-        return (756e12 if pcie else 989e12), (2.0e12 if pcie else 3.35e12)
-    return (51e12, 2.0e12) if pcie else (67e12, 3.35e12)
+        return (756e12 if pcie else 989e12), byte_rate
+    if dtype == "tf32":
+        return (378e12 if pcie else 495e12), byte_rate
+    return (51e12 if pcie else 67e12), byte_rate
 
 
 def phase1_edge_cases(dev):
@@ -414,6 +425,9 @@ FLASH_WIDTHS = {  # b, s, h, kvh, hd, window; causal
     "qwen3-0.6b": (2, 4096, 16, 8, 128, 0),           # src/repro/configs/qwen3_06b.py
     "recurrentgemma-2b": (1, 4096, 10, 1, 256, 2048),  # configs/recurrentgemma_2b.py, local attn
 }
+# the reduced configs' attention (src/repro/configs/base.py:92-117: hd 16,
+# H 4, KVH 2, f32), on the main path of phase 7 beside the model widths
+FLASH_REDUCED = (2, 4096, 4, 2, 16, 0)
 
 
 def flash_qkv(dev, b, s, h, kvh, hd, seed):
@@ -461,6 +475,21 @@ def phase7_edge_cases(dev):
         (3, 3, 9, 9, 128, True, 0, bf16),          # Sq < 16
         (2, 2, 128, 64, 64, True, 16, bf16),       # late rows see no key: zeros
         (2, 1, 200, 200, 128, True, 100, bf16),    # window edge inside a q tile
+        # the f32 3xTF32 kernel at every edge, and the widths the wrapper pads
+        (4, 2, 64, 64, 16, True, 8, f32),          # hd 16, window 8: the reduced configs
+        (2, 2, 9, 25, 16, False, 0, f32),          # hd 16, Sq < 16, non-causal
+        (4, 2, 70, 70, 48, True, 0, f32),          # hd 48 -> 64
+        (3, 3, 90, 90, 80, False, 0, f32),         # hd 80 -> 128
+        (4, 2, 40, 40, 1, True, 0, f32),           # hd 1 -> 16
+        (10, 1, 130, 130, 128, True, 0, f32),      # g 10
+        (4, 2, 100, 77, 64, False, 0, f32),        # non-causal, Skv not a multiple of 8
+        (3, 3, 9, 9, 128, True, 0, f32),           # Sq < 16
+        (2, 2, 128, 64, 64, True, 16, f32),        # late rows see no key: zeros
+        (2, 1, 200, 200, 128, True, 100, f32),     # window edge inside a q tile
+        (2, 1, 300, 300, 256, True, 40, f32),      # hd 256, window edge inside q tiles
+        (4, 2, 64, 64, 16, True, 8, bf16),         # bf16 hd 16
+        (4, 2, 70, 70, 48, True, 0, bf16),         # bf16 hd 48 -> 64
+        (3, 3, 90, 90, 80, False, 0, bf16),        # bf16 hd 80 -> 128
     ]
     worst = {f32: (0.0, 0.0), bf16: (0.0, 0.0)}
     for bh, kvh, sq, skv, hd, causal, window, dtype in cases:
@@ -472,6 +501,9 @@ def phase7_edge_cases(dev):
         torch.cuda.synchronize()
         want = flash_attention_plain(q, k, v, **kw)
         err, used = flash_close(got, want)
+        assert got.shape == q.shape and bool(torch.isfinite(got).all())
+        if window == 16 and skv == 64:   # rows from 79 on see no key: exactly 0
+            assert not got[:, 79:].any()
         worst[dtype] = tuple(map(max, worst[dtype], (err, used)))
         print(f"phase 7 flash bh={bh} kvh={kvh} sq={sq} skv={skv} hd={hd} causal={causal} "
               f"window={window} {str(dtype)[6:]}: max|d|={err:.3e} tol used {used:.3f}")
@@ -508,10 +540,29 @@ def phase7_planted_faults(q, k, v, window, want):
     return readings
 
 
+def phase7_tf32_planted_fault(qf, kf, vf, kw, want):
+    """What the f32 check reads, against the plain version ``want``, for
+    the plain version computed with TF32 matmuls (one TF32 product where
+    the kernel takes three); it must fail."""
+    from repro_torch.kernels.flash_attn.ref import flash_attention_plain
+    from repro_torch.testing import flash_tolerance, tolerance_used
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        planted = flash_attention_plain(qf, kf, vf, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    reading = tolerance_used(planted, want, *flash_tolerance(want))[1]
+    assert reading > 1.0, ("one TF32 product passes the f32 check", reading)
+    return reading
+
+
 def phase7_full_width(dev, name, model, dtype):
     """Kernel against plain at one model's width, with timings: a dict of
-    the kernel line's numbers for this case.  In bf16, the check's readings
-    for planted faults too, and the first bf16 design's check and time."""
+    the kernel line's numbers for this case, and the first (fp32-FMA)
+    design's check and time in turns beside the kernel.  The check's
+    readings for planted faults too: one TF32 product in f32, three faults
+    in bf16."""
     from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda
     from repro_torch.kernels.flash_attn.ops import heads_first
     from repro_torch.kernels.flash_attn.ref import flash_attention_plain
@@ -531,18 +582,20 @@ def phase7_full_width(dev, name, model, dtype):
         faults = phase7_planted_faults(q, k, v, window, want)
         print(f"phase 7 flash {model} bf16 check: kernel uses {used:.3f} of the tolerance; "
               "planted faults read " + ", ".join(f"{f} {r:.1f}x" for f, r in faults.items()))
-        first = flash_attn_v1(qf, kf, vf, **kw)
-        torch.cuda.synchronize()
-        first_err, first_used = flash_close(first, want)
-        del first
-    del want
-    ms = cuda_ms(lambda: flash_attention_cuda(qf, kf, vf, **kw), reps=10)
-    first_ms = None
-    if dtype == torch.bfloat16:
-        first_ms = cuda_ms(lambda: flash_attn_v1(qf, kf, vf, **kw), reps=5)
-        ms_again = cuda_ms(lambda: flash_attention_cuda(qf, kf, vf, **kw), reps=10)
-        print(f"  first bf16 design (fp32 FMAs): max|d|={first_err:.3e} tol used "
-              f"{first_used:.3f}, {first_ms:.3f} ms/launch; the kernel again {ms_again:.3f} ms")
+    else:
+        tf32_reading = phase7_tf32_planted_fault(qf, kf, vf, kw, want)
+        print(f"phase 7 flash {model} f32 check: the 3xTF32 kernel uses {used:.3f} of the "
+              f"tolerance; one TF32 product (plain with TF32 matmuls) reads {tf32_reading:.1f}x")
+    first = flash_attn_v1(qf, kf, vf, **kw)
+    torch.cuda.synchronize()
+    first_err, first_used = flash_close(first, want)
+    del first, want
+    turns = [cuda_ms(lambda: fn(qf, kf, vf, **kw), reps=r)
+             for fn, r in ((flash_attention_cuda, 10), (flash_attn_v1, 5), (flash_attn_v1, 5),
+                           (flash_attention_cuda, 10))]
+    ms, first_ms = turns[0], turns[1]
+    print(f"  first design (fp32 FMAs): max|d|={first_err:.3e} tol used {first_used:.3f}; in "
+          f"turns (kernel, first, first, kernel) {'; '.join(f'{x:.3f}' for x in turns)} ms/launch")
     plain_ms = cuda_ms(lambda: flash_attention_plain(qf, kf, vf, **kw), reps=2)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))   # (B, H, S, hd) views
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -553,16 +606,27 @@ def phase7_full_width(dev, name, model, dtype):
         library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), reps=5)
     flops = 4.0 * hd * visible_pairs(s, s, True, window) * b * h
     flash_bytes = nbytes(qf, kf, vf, got)
-    bound_ms, bound_by = bound(flops, flash_bytes, name, dtype)
-    q_tile = 128 if dtype == torch.bfloat16 and hd <= 128 else 64   # rows a CTA (csrc/flash_attn*)
+    if dtype == torch.bfloat16:
+        bound_ms, bound_by = bound(flops, flash_bytes, name, dtype)
+        fma_bound_ms = None
+    else:   # three TF32 products a product on the tensor cores; fp32 FMAs beside it
+        bound_ms, bound_by = bound(3 * flops, flash_bytes, name, "tf32")
+        fma_bound_ms = bound(flops, flash_bytes, name)[0]
+    q_tile = 64 if dtype == torch.bfloat16 and hd > 128 else 128   # rows a CTA (csrc/flash_attn.cu)
     n_ctas = -(-s // q_tile) * b * h
     print(f"phase 7 flash {model} {str(dtype)[6:]}: B={b} S={s} H={h} KVH={kvh} hd={hd} "
           f"window={window} CTAs {n_ctas} max|d|={err:.3e} tol used {used:.3f}")
-    print(f"  flash_attn kernel {ms:.3f} ms/launch, plain {plain_ms:.3f} ms, sdpa "
-          f"{library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: {flops:.3e} flop, "
-          f"{flash_bytes:.3e} B), {flops / ms / 1e9:.1f} TFLOP/s")
+    bounds = (f"bound {bound_ms:.4f} ms ({bound_by}: {flops:.3e} flop, {flash_bytes:.3e} B)"
+              if fma_bound_ms is None else
+              f"bound {bound_ms:.4f} ms (3xTF32: {3 * flops:.3e} TF32 flop at the dense TF32 "
+              f"rate; {flops:.3e} flop, {flash_bytes:.3e} B), fp32-FMA bound "
+              f"{fma_bound_ms:.4f} ms")
+    print(f"  flash_attn kernel {ms:.3f} ms/launch, first design {first_ms:.3f} ms "
+          f"({first_ms / ms:.2f}x), plain {plain_ms:.3f} ms, sdpa {library_ms:.3f} ms, "
+          f"{bounds}, {flops / ms / 1e9:.1f} TFLOP/s")
     return dict(max_abs_err=err, used=used, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms, first_ms=first_ms)
+                bound_by=bound_by, library_ms=library_ms, first_ms=first_ms,
+                fma_bound_ms=fma_bound_ms)
 
 
 def phase7_main_path(dev, reset_counts, counters):
@@ -574,22 +638,26 @@ def phase7_main_path(dev, reset_counts, counters):
     from repro_torch.models.attention import _causal_mask, _sdpa
     from repro_torch.testing import flash_close
 
-    inputs = {m: flash_qkv(dev, *FLASH_WIDTHS[m][:5], seed=7) for m in FLASH_WIDTHS}
+    widths = dict(FLASH_WIDTHS, reduced=FLASH_REDUCED)
+    inputs = {m: flash_qkv(dev, *widths[m][:5], seed=7) for m in widths}
     calls = [(m, dtype) for m in FLASH_WIDTHS for dtype in (torch.float32, torch.bfloat16)]
+    calls.append(("reduced", torch.float32))
     reset_counts()
     t0 = time.perf_counter()
     outs = [flash_sdpa(*(x.to(dtype) for x in inputs[m]), causal=True,
-                       window=FLASH_WIDTHS[m][5]) for m, dtype in calls]
+                       window=widths[m][5]) for m, dtype in calls]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = flash_attention_cuda.launches
+    f32_launches = flash_attention_cuda.f32_mma_launches
     bf16_launches = flash_attention_cuda.bf16_launches
     assert launches == len(calls), launches
     assert bf16_launches == sum(dtype == torch.bfloat16 for _, dtype in calls), bf16_launches
+    assert f32_launches == sum(dtype == torch.float32 for _, dtype in calls), f32_launches
     assert all(fn.launches == 0 for fn in counters if fn is not flash_attention_cuda)
     worst = 0.0
     for (m, dtype), out in zip(calls, outs):
-        b, s, h, kvh, hd, window = FLASH_WIDTHS[m]
+        b, s, h, kvh, hd, window = widths[m]
         q, k, v = (x.to(dtype) for x in inputs[m])
         assert out.shape == (b, s, h, hd) and out.dtype == dtype
         assert bool(torch.isfinite(out).all())
@@ -606,8 +674,9 @@ def phase7_main_path(dev, reset_counts, counters):
               f"{'_sdpa + _causal_mask' if dtype == torch.float32 else 'plain'} "
               f"max|d|={err:.3e} tol used {used:.3f}")
     print(f"phase 7 main path: {len(calls)} flash_sdpa calls in {wall:.3f} s, launches "
-          f"flash_attn {launches} (of which the bf16 tensor-core kernel {bf16_launches})")
-    return launches, bf16_launches, worst
+          f"flash_attn {launches} (the f32 3xTF32 kernel {f32_launches}, the bf16 kernel "
+          f"{bf16_launches})")
+    return f32_launches, bf16_launches, worst
 
 
 # Phase 8: wkv at rwkv6-3b's width (src/repro/configs/rwkv6_3b.py: d_model
@@ -660,6 +729,18 @@ def phase8_edge_cases(dev):
         print(f"phase 8 wkv bh={bh} t={t} K={kk} chunk={chunk} shift={shift} "
               f"{str(dtype)[6:]}: bit-identical to the first design, vs plain max|d|={err:.3e} "
               f"tol used {used:.3f}")
+    for bh, t, kk, shift, dtype in (   # chunk 8, the reduced configs' (no first design)
+            (8, 4096, 16, -6.0, f32), (5, 100, 16, -1.0, bf16), (3, 200, 32, -1.0, f32),
+            (3, 200, 64, -4.0, f32), (2, 90, 64, -6.0, bf16)):
+        r, k, v, lw, u = wkv_inputs(dev, (bh, t, kk), (bh, kk), shift, seed=t * kk + 8)
+        r, k, v, lw = (x.to(dtype) for x in (r, k, v, lw))
+        got = wkv_cuda(r, k, v, lw, u, chunk=8)
+        torch.cuda.synchronize()
+        assert got.shape == r.shape and bool(torch.isfinite(got).all())
+        err, used = wkv_close(got, wkv_plain(r, k, v, lw, u, chunk=8))
+        worst[dtype] = tuple(map(max, worst[dtype], (err, used)))
+        print(f"phase 8 wkv bh={bh} t={t} K={kk} chunk=8 shift={shift} {str(dtype)[6:]}: vs "
+              f"plain max|d|={err:.3e} tol used {used:.3f}")
     return worst
 
 
@@ -809,7 +890,7 @@ def main():
     from repro_torch.core.engine import JoinSpec, JoinStats, SparseKNNIndex
     from repro_torch.core.topk import TopKState, init_topk, merge_topk_states
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attn.kernel import HEAD_DIMS, flash_attention_cuda
+    from repro_torch.kernels.flash_attn.kernel import KERNEL_WIDTHS, flash_attention_cuda
     from repro_torch.kernels.wkv.kernel import wkv_cuda
     from repro_torch.kernels.knn_score.kernel import knn_score_cuda
     from repro_torch.kernels.knn_score.ops import knn_score
@@ -848,6 +929,7 @@ def main():
         for fn in counters:
             fn.launches = 0
         flash_attention_cuda.bf16_launches = 0
+        flash_attention_cuda.f32_mma_launches = 0
 
     edge_err = phase1_edge_cases(dev)
 
@@ -1079,14 +1161,15 @@ def main():
           f"({big_bound_by}: {big_bytes:.3e} B), {usage_of(usage, 'topk_merge_large_kernel')}")
     del a_big, b_big, big, plain_big, big_args
 
-    # phase 7: flash attention at qwen3-0.6b and recurrentgemma-2b widths; the bf16
-    # kernel's tensor-core instructions and registers per head width first
-    mma_counts = sass_mma_counts(built["flash_attn"][0], "flash_attn_mma_kernel")
-    for hd in HEAD_DIMS:
-        hits = [c for f, c in mma_counts.items() if f"ILi{hd}E" in f]
-        print(f"phase 7 flash bf16 kernel hd {hd}: {sum(hits)} HMMA/HGMMA instructions "
-              f"(cuobjdump -sass), {usage_of(usage, f'flash_attn_mma_kernelILi{hd}E')}")
-        assert len(hits) == 1 and hits[0] > 0, (hd, mma_counts)
+    # phase 7: flash attention at qwen3-0.6b and recurrentgemma-2b widths; both
+    # kernels' tensor-core instructions and registers per head width first
+    for kind, part in (("f32 3xTF32", "flash_attn_tf32_kernel"), ("bf16", "flash_attn_mma_kernel")):
+        mma_counts = sass_mma_counts(built["flash_attn"][0], part)
+        for hd in KERNEL_WIDTHS:
+            hits = [c for f, c in mma_counts.items() if f"ILi{hd}E" in f]
+            print(f"phase 7 flash {kind} kernel hd {hd}: {sum(hits)} HMMA/HGMMA instructions "
+                  f"(cuobjdump -sass), {usage_of(usage, f'{part}ILi{hd}E')}")
+            assert len(hits) == 1 and hits[0] > 0, (hd, mma_counts)
     flash_worst = phase7_edge_cases(dev)   # {dtype: (max |Δ|, tolerance used)}
     flash_full = {}
     for m in FLASH_WIDTHS:
@@ -1094,18 +1177,21 @@ def main():
             flash_full[m, dtype] = phase7_full_width(dev, name, m, dtype)
             case = (flash_full[m, dtype]["max_abs_err"], flash_full[m, dtype]["used"])
             flash_worst[dtype] = tuple(map(max, flash_worst[dtype], case))
-    flash_launches, flash_bf16_launches, flash_op_err = phase7_main_path(dev, reset_counts,
-                                                                         counters)
+    flash_f32_launches, flash_bf16_launches, flash_op_err = phase7_main_path(dev, reset_counts,
+                                                                             counters)
     f32_err = max(flash_worst[torch.float32][0], flash_op_err)
     print(f"phase 7 worst: f32 max|d| {f32_err:.3e} (tol used "
           f"{flash_worst[torch.float32][1]:.3f}), bf16 max|d| "
           f"{flash_worst[torch.bfloat16][0]:.3e} (tol used {flash_worst[torch.bfloat16][1]:.3f})")
     for m in FLASH_WIDTHS:
-        f32_ms, bf16 = flash_full[m, torch.float32]["ms"], flash_full[m, torch.bfloat16]
-        print(f"phase 7 {m}: bf16 tensor cores {bf16['ms']:.3f} ms, first bf16 design "
-              f"{bf16['first_ms']:.3f} ms ({bf16['first_ms'] / bf16['ms']:.1f}x), f32 {f32_ms:.3f} "
-              f"ms, SDPA bf16 {bf16['library_ms']:.3f} ms ({bf16['ms'] / bf16['library_ms']:.2f}x "
-              f"its time), bound {bf16['bound_ms']:.4f} ms")
+        f32, bf16 = flash_full[m, torch.float32], flash_full[m, torch.bfloat16]
+        print(f"phase 7 {m}: f32 3xTF32 {f32['ms']:.3f} ms, first f32 design "
+              f"{f32['first_ms']:.3f} ms ({f32['first_ms'] / f32['ms']:.2f}x), SDPA f32 "
+              f"{f32['library_ms']:.3f} ms, bounds 3xTF32 {f32['bound_ms']:.4f} ms, fp32 FMAs "
+              f"{f32['fma_bound_ms']:.4f} ms; bf16 {bf16['ms']:.3f} ms, first bf16 design "
+              f"{bf16['first_ms']:.3f} ms ({bf16['first_ms'] / bf16['ms']:.1f}x), SDPA bf16 "
+              f"{bf16['library_ms']:.3f} ms ({bf16['ms'] / bf16['library_ms']:.2f}x its time), "
+              f"bound {bf16['bound_ms']:.4f} ms")
     # the kernels line carries the qwen3-0.6b cases: f32 with the worst f32 error,
     # bf16 with the worst bf16 error
     flash_line = dict(flash_full[("qwen3-0.6b", torch.float32)], max_abs_err=f32_err)
@@ -1163,16 +1249,16 @@ def main():
             "library_ms": merge_library_ms,
         },
         {
-            "name": "flash_attn",
+            "name": "flash_attn",   # the f32 path: 3xTF32 mma.sync on the tensor cores
             "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attn_simt.cuh",
+            "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
             "replaces": "src/repro/kernels/flash_attn/kernel.py:36",
-            "launches": flash_launches - flash_bf16_launches,
+            "launches": flash_f32_launches,
             **{key: flash_line[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms")},
         },
         {
-            "name": "flash_attn_bf16",   # the bf16 path: mma.sync on the tensor cores
+            "name": "flash_attn_bf16",   # the bf16 path: bf16 mma.sync on the tensor cores
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
             "replaces": "src/repro/kernels/flash_attn/kernel.py:36",

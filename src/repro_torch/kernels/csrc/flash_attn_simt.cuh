@@ -1,7 +1,7 @@
-// Flash attention (online softmax) in fp32 FMAs: the kernel of
-// flash_attn.cu's f32 path, and the first design of its bf16 path
-// (csrc/legacy/flash_attn_v1.cu), which flash_attn.cu's tensor-core kernel
-// replaced.
+// Flash attention (online softmax) in fp32 FMAs: the first design of
+// flash_attn.cu's f32 and bf16 paths, which its two tensor-core kernels
+// (3xTF32 and bf16 mma.sync) replaced; built only into
+// csrc/legacy/flash_attn_v1.cu, on no path of the port.
 //
 // Replaces repro/kernels/flash_attn/kernel.py::flash_attention_pallas (the
 // Pallas TPU kernel, body _flash_kernel at :36) and computes what it does:

@@ -295,13 +295,14 @@ struct OutShape {
   static constexpr int NX = K / 4;       // column groups: channels 4 tx .. 4 tx + 3
   static constexpr int NY = NT / NX;     // row groups: tokens ty + NY a
   static constexpr int MR = C / NY;      // token rows a thread
-  static constexpr int NJ = C / NX;      // score columns a thread: tx + NX b
+  static constexpr int NJ = (C + NX - 1) / NX;  // score columns a thread: tx + NX b < C
   static constexpr int LDK = K + 4;      // r and k rows: the rows a warp reads as float4
   static constexpr int LDC = C + 4;      // lie in different banks
   static constexpr int kScores = C * LDC > C * K ? C * LDC : C * K;  // scores or li
   static constexpr int kFloats = 2 * C * LDK + 2 * C * K + K * K + kScores + C + K;
   static constexpr size_t kSmem = sizeof(float) * (size_t)kFloats;
-  static_assert(NY % 4 == 0 && NY * MR == C && NX * NJ == C, "thread grid");
+  static constexpr bool kAllCols = NX * NJ == C;  // else (C 8, K 64) threads tx >= C own no column
+  static_assert(NY % 4 == 0 && NY * MR == C && (kAllCols || NJ == 1), "thread grid");
 };
 
 // Persistent: CTA b takes chunks b, b + gridDim.x, ... (chunk g is chunk g %
@@ -439,6 +440,7 @@ wkv_out_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __rest
         }
 #pragma unroll
       for (int b = 0; b < NJ; ++b) {
+        if (!S::kAllCols && tx + NX * b >= C) continue;
         const float4 kb = *reinterpret_cast<const float4*>(ks + (tx + NX * b) * S::LDK + c);
 #pragma unroll
         for (int a = 0; a < MR; ++a) {
@@ -458,6 +460,7 @@ wkv_out_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __rest
       for (int b = 0; b < NJ; ++b) {
         if (NX * b >= NY * (a + 1)) continue;
         const int i = ty + NY * a, j = tx + NX * b;
+        if (!S::kAllCols && j >= C) continue;
         sc[i * S::LDC + j] = j < i ? s[a][b] : 0.f;
       }
     __syncthreads();
@@ -598,6 +601,8 @@ int by_chunk(int chunk, const void* r, const void* k, const void* v, const void*
              const float* u, void* out, float* states, float* ltot, int bh, int t,
              cudaStream_t st, int* shape_out) {
   switch (chunk) {
+    case 8: return shape_out ? shape<8, K>(bh, t, shape_out)
+                             : launch<8, K, T>(r, k, v, lw, u, out, states, ltot, bh, t, st);
     case 16: return shape_out ? shape<16, K>(bh, t, shape_out)
                               : launch<16, K, T>(r, k, v, lw, u, out, states, ltot, bh, t, st);
     case 32: return shape_out ? shape<32, K>(bh, t, shape_out)

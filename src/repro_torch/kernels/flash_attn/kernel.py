@@ -4,14 +4,20 @@
 ``flash_attention_pallas``: q (BH, Sq, hd), k and v (BH, Skv, hd),
 ``causal``, ``sm_scale`` and ``window``; k and v may also hold BH / g
 heads, query head i reading kv head i // g (GQA without repeating kv).
-No padding: Sq and Skv may be any length.  On CUDA tensors it launches the
-hand-written kernels of ``../csrc/flash_attn.cu``: f32 in fp32 FMAs
-(``flash_attn_simt.cuh``), bf16 on the tensor cores (``mma.sync``
-bf16 x bf16 with f32 accumulators, as the Pallas kernel's products).  On
-CPU tensors it runs the plain version (``ref.flash_attention_plain``).
+Sq and Skv may be any length.  On CUDA tensors it launches the
+hand-written kernels of ``../csrc/flash_attn.cu``, both on the tensor
+cores: f32 in 3xTF32 (each f32 product as three TF32 ``mma.sync``
+products, to f32's accuracy), bf16 as bf16 x bf16 with f32 accumulators
+(the Pallas kernel's products).  The kernels take head widths
+``KERNEL_WIDTHS``; any other width up to 256 is zero-padded to the next of
+them (``pad_head_width``: zero columns add an exact 0 to every score and
+give zero output columns, which are cut off; ``sm_scale`` stays the
+caller's), at the cost of one copy of q, k, v and the output.  On CPU
+tensors it runs the plain version (``ref.flash_attention_plain``).
 Nothing falls back: a CUDA tensor that the kernels cannot take raises.
 ``flash_attention_cuda.launches`` counts the launches of both kernels,
-``flash_attention_cuda.bf16_launches`` those of the tensor-core kernel.
+``.f32_mma_launches`` those of the 3xTF32 kernel and ``.bf16_launches``
+those of the bf16 kernel.
 """
 from __future__ import annotations
 
@@ -22,9 +28,23 @@ import torch
 from repro_torch.kernels._build import check, launch
 from repro_torch.kernels.flash_attn.ref import flash_attention_plain
 
-HEAD_DIMS = (32, 64, 128, 256)
+KERNEL_WIDTHS = (16, 32, 64, 128, 256)
+MAX_HEAD_DIM = KERNEL_WIDTHS[-1]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 8 + (ctypes.c_float,)
+
+
+def kernel_width(hd: int) -> int:
+    """The head width a kernel runs ``hd`` at: the least of KERNEL_WIDTHS ≥ hd."""
+    for w in KERNEL_WIDTHS:
+        if hd <= w:
+            return w
+    raise ValueError(f"head width {hd} exceeds the kernels' largest, {MAX_HEAD_DIM}")
+
+
+def pad_head_width(x: torch.Tensor, width: int) -> torch.Tensor:
+    """(..., hd) -> (..., width), zero columns after the hd real ones."""
+    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
 
 
 def flash_attention_cuda(
@@ -45,8 +65,8 @@ def flash_attention_cuda(
         raise ValueError("q, k and v must be 3-d: (BH, S, hd)")
     bh, sq, hd = q.shape
     kvh, skv = k.shape[0], k.shape[1]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head width {hd} is not one the kernel takes: {HEAD_DIMS}")
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head width {hd} is not one the kernels take: 1 to {MAX_HEAD_DIM}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"q has dtype {q.dtype}; the kernel takes float32 or bfloat16")
     if kvh < 1 or bh % kvh:
@@ -59,18 +79,23 @@ def flash_attention_cuda(
     if bh > 65535:
         raise ValueError(f"BH={bh} exceeds the kernel's grid (65,535)")
 
+    width = kernel_width(hd)
+    if width != hd:
+        q, k, v = (pad_head_width(x, width) for x in (q, k, v))
     out = torch.empty_like(q)
-    if bh * sq == 0:
-        return out
-    launch("flash_attn", _ARGTYPES, dev,
-           q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-           _DTYPES[q.dtype], bh, sq, skv, hd, bh // kvh, int(bool(causal)), int(window),
-           float(sm_scale))
-    flash_attention_cuda.launches += 1
-    if q.dtype == torch.bfloat16:
-        flash_attention_cuda.bf16_launches += 1
-    return out
+    if bh * sq:
+        launch("flash_attn", _ARGTYPES, dev,
+               q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+               _DTYPES[q.dtype], bh, sq, skv, width, bh // kvh, int(bool(causal)), int(window),
+               float(sm_scale))
+        flash_attention_cuda.launches += 1
+        if q.dtype == torch.bfloat16:
+            flash_attention_cuda.bf16_launches += 1
+        else:
+            flash_attention_cuda.f32_mma_launches += 1
+    return out[..., :hd].contiguous()   # out itself when nothing was padded
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.f32_mma_launches = 0
 flash_attention_cuda.bf16_launches = 0

@@ -1,11 +1,11 @@
 """Launchers of the first CUDA designs of knn_topk, knn_score,
-flash_attn's bf16 path, wkv and topk_merge's k <= 128 path
+flash_attn (f32 and bf16), wkv and topk_merge's k <= 128 path
 (``csrc/legacy/*_v1.cu``: one CTA per 256-row group walking S in order; a
-CTA per 64 x 64 sub-tile with a 4 x 4 micro-tile; fp32 FMAs on bf16
+CTA per 64 x 64 sub-tile with a 4 x 4 micro-tile; fp32 FMAs, bf16
 converted at load; one CTA per b·h walking its chunks in order; one warp
 a row).  On no path of the port: ``chip_smoke.py`` and the card tests run
 them at the engine's and the models' shapes, to show that the present
-kernels give bit for bit their outputs (flash_attn bf16 aside) and to
+kernels give bit for bit their outputs (flash_attn aside) and to
 time each beside the design that replaced it.  They take the arguments of
 ``knn_topk_fused``, ``knn_score_cuda``, ``flash_attention_cuda``,
 ``wkv_cuda`` and ``topk_merge_cuda`` on CUDA tensors that those wrappers
@@ -21,10 +21,10 @@ from repro_torch.kernels._build import launch
 
 _TOPK_ARGTYPES = (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 10
 _SCORE_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 9
-_FLASH_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 7 + (ctypes.c_float,)
+_FLASH_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 8 + (ctypes.c_float,)
 _WKV_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5
 _MERGE_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 4
-_WKV_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def knn_topk_v1(r_tiles, s_tiles, active, s_valid, s_ids, init_scores, init_ids, thr,
@@ -58,11 +58,12 @@ def knn_score_v1(r_tiles, s_tiles, active, block_r, block_s):
 
 
 def flash_attn_v1(q, k, v, causal=True, sm_scale=1.0, window=0):
-    """The fp32-FMA design's (BH, Sq, hd) bf16 output for bf16 q, k, v."""
+    """The fp32-FMA design's (BH, Sq, hd) output in q.dtype (f32 or bf16);
+    hd 32, 64, 128 or 256."""
     bh, sq, hd = q.shape
     out = torch.empty_like(q)
     launch("flash_attn_v1", _FLASH_ARGTYPES, q.device,
-           q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
            bh, sq, k.shape[1], hd, bh // k.shape[0], int(bool(causal)), int(window),
            float(sm_scale))
     return out
@@ -74,7 +75,7 @@ def wkv_v1(r, k, v, lw, u, chunk=128):
     out = torch.empty_like(r)
     launch("wkv_v1", _WKV_ARGTYPES, r.device,
            r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(), u.data_ptr(),
-           out.data_ptr(), _WKV_DTYPES[r.dtype], bh, t, kk, chunk)
+           out.data_ptr(), _DTYPES[r.dtype], bh, t, kk, chunk)
     return out
 
 

@@ -22,7 +22,7 @@ from repro_torch.kernels._build import check, launch, load
 from repro_torch.kernels.wkv.ref import wkv_plain
 
 HEAD_SIZES = (16, 32, 64)
-CHUNKS = (16, 32, 64, 128)
+CHUNKS = (8, 16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 5
 KERNELS = ("wkv_state_kernel", "wkv_carry_kernel", "wkv_out_kernel")

@@ -1,9 +1,10 @@
 """The port's CUDA kernels on the card: knn_topk_fused, knn_score_cuda,
 topk_merge_cuda (k <= 128 and the large-k kernel), flash_attention_cuda
-(f32, and bf16 on the tensor cores) and wkv_cuda against their plain
-versions, merge_topk_states, the public ops, the wrappers' input checks,
-and the fused-kernel join path in both modes, with the k > 128 route and
-a tile that is not a multiple of 4.
+(f32 in 3xTF32 and bf16, both on the tensor cores, at every head width
+up to 256) and wkv_cuda (chunks 8 to 128) against their plain versions,
+merge_topk_states, the public ops, the wrappers' input checks, and the
+fused-kernel join path in both modes, with the k > 128 route and a tile
+that is not a multiple of 4.
 Every test here needs a CUDA device and skips without one.  The file imports neither jax
 nor repro, so it runs on a machine with the card alone:
 
@@ -33,7 +34,7 @@ from repro_torch.kernels.knn_topk.ops import column_meta, pad_state, score_then_
 from repro_torch.kernels.knn_topk.ref import knn_topk_plain  # noqa: E402
 from repro_torch.kernels.topk_merge.kernel import insert_candidates, topk_merge_cuda  # noqa: E402
 from repro_torch.kernels.topk_merge.ref import topk_merge_plain  # noqa: E402
-from repro_torch.kernels.legacy import topk_merge_v1, wkv_v1  # noqa: E402
+from repro_torch.kernels.legacy import flash_attn_v1, topk_merge_v1, wkv_v1  # noqa: E402
 from repro_torch.kernels.wkv.kernel import wkv_cuda  # noqa: E402
 from repro_torch.kernels.wkv.ops import wkv  # noqa: E402
 from repro_torch.kernels.wkv.ref import wkv_plain  # noqa: E402
@@ -451,6 +452,95 @@ def test_flash_bf16_kernel_takes_any_sm_scale(cuda, sm_scale):
     flash_close(got, flash_attention_plain(q, k, v, causal=True, sm_scale=sm_scale))
 
 
+@pytest.mark.parametrize("bh,kvh,sq,skv,hd,causal,window", [
+    (4, 2, 64, 64, 16, True, 0),       # hd 16, the reduced configs' width
+    (2, 2, 128, 128, 32, True, 0),     # hd 32
+    (4, 2, 70, 70, 48, True, 0),       # hd 48: padded to 64
+    (2, 1, 150, 150, 64, True, 0),     # hd 64, g 2
+    (3, 3, 90, 90, 80, False, 0),      # hd 80: padded to 128
+    (4, 2, 200, 200, 128, True, 0),    # hd 128
+    (2, 1, 200, 200, 256, True, 0),    # hd 256: one m16 tile a warp
+    (4, 2, 40, 40, 1, True, 0),        # hd 1: padded to 16
+    (10, 1, 130, 130, 128, True, 0),   # g 10
+    (16, 2, 96, 96, 64, True, 0),      # g 8
+    (4, 2, 100, 77, 64, False, 0),     # non-causal, Skv not a multiple of 8
+    (3, 3, 9, 9, 128, True, 0),        # Sq < 16: a partial m16 tile
+    (2, 2, 9, 25, 16, False, 0),       # Sq < 16, non-causal, hd 16
+    (2, 2, 128, 64, 64, True, 16),     # rows from 79 on see no key
+    (2, 1, 200, 200, 128, True, 100),  # a window edge inside each q tile
+    (2, 1, 300, 300, 256, True, 40),   # hd 256 with a window edge inside q tiles
+    (4, 2, 50, 50, 16, True, 8),       # the reduced configs' window 8
+])
+def test_flash_f32_tensor_core_kernel_matches_plain(cuda, bh, kvh, sq, skv, hd, causal, window):
+    """f32 goes to the 3xTF32 kernel, at f32's tolerance."""
+    q, k, v = _qkv(cuda, bh, kvh, sq, skv, hd, torch.float32, seed=sq * skv + hd)
+    before = (flash_attention_cuda.launches, flash_attention_cuda.f32_mma_launches,
+              flash_attention_cuda.bf16_launches)
+    got = flash_attention_cuda(q, k, v, causal=causal, sm_scale=hd ** -0.5, window=window)
+    torch.cuda.synchronize()
+    assert (flash_attention_cuda.launches, flash_attention_cuda.f32_mma_launches,
+            flash_attention_cuda.bf16_launches) == (before[0] + 1, before[1] + 1, before[2])
+    assert got.dtype == torch.float32 and got.shape == q.shape and got.is_contiguous()
+    assert bool(torch.isfinite(got).all())
+    want = flash_attention_plain(q, k, v, causal=causal, sm_scale=hd ** -0.5, window=window)
+    flash_close(got, want)
+    if window == 16:   # no visible key: exactly 0
+        assert not got[:, 79:].any()
+
+
+@pytest.mark.parametrize("hd", [16, 48, 80])
+def test_flash_bf16_kernel_takes_any_head_width(cuda, hd):
+    """hd 16 runs natively, 48 and 80 zero-padded to 64 and 128."""
+    q, k, v = _qkv(cuda, 4, 2, 100, 100, hd, torch.bfloat16, seed=hd)
+    before = flash_attention_cuda.bf16_launches
+    got = flash_attention_cuda(q, k, v, causal=True, sm_scale=hd ** -0.5)
+    assert flash_attention_cuda.bf16_launches == before + 1 and got.shape == q.shape
+    flash_close(got, flash_attention_plain(q, k, v, causal=True, sm_scale=hd ** -0.5))
+
+
+@pytest.mark.parametrize("sm_scale", [-0.125, 0.0, 0.5])
+def test_flash_f32_kernel_takes_any_sm_scale(cuda, sm_scale):
+    q, k, v = _qkv(cuda, 2, 2, 100, 100, 64, torch.float32, seed=5)
+    got = flash_attention_cuda(q, k, v, causal=True, sm_scale=sm_scale)
+    flash_close(got, flash_attention_plain(q, k, v, causal=True, sm_scale=sm_scale))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_repeat_bit_for_bit(cuda, dtype):
+    q, k, v = _qkv(cuda, 8, 2, 300, 300, 128, dtype, seed=9)
+    first = flash_attention_cuda(q, k, v, causal=True, sm_scale=0.125, window=100)
+    again = flash_attention_cuda(q, k, v, causal=True, sm_scale=0.125, window=100)
+    assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_first_design_matches_plain(cuda, dtype):
+    """The fp32-FMA first design (csrc/legacy/) in both types, as chip_smoke.py times it."""
+    q, k, v = _qkv(cuda, 4, 2, 150, 150, 128, dtype, seed=11)
+    got = flash_attn_v1(q, k, v, causal=True, sm_scale=128 ** -0.5, window=64)
+    flash_close(got, flash_attention_plain(q, k, v, causal=True, sm_scale=128 ** -0.5,
+                                           window=64))
+
+
+def test_flash_f32_check_catches_one_tf32_product(cuda):
+    """At qwen3-0.6b's width, the plain version with its matmuls in TF32
+    (one TF32 product, not three) fails the f32 check that the 3xTF32
+    kernel passes."""
+    b, s, h, kvh, hd = 2, 4096, 16, 8, 128
+    q, k, v = _qkv(cuda, b * h, b * kvh, s, s, hd, torch.float32, seed=1)
+    kw = dict(causal=True, sm_scale=hd ** -0.5)
+    want = flash_attention_plain(q, k, v, **kw)
+    flash_close(flash_attention_cuda(q, k, v, **kw), want)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        planted = flash_attention_plain(q, k, v, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    with pytest.raises(AssertionError):
+        flash_close(planted, want)
+
+
 def test_flash_sdpa_op_matches_model_sdpa(cuda):
     b, s, h, kvh, hd = 2, 200, 8, 2, 128
     g = torch.Generator().manual_seed(3)
@@ -474,7 +564,7 @@ def test_flash_wrapper_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):   # contiguity
         flash_attention_cuda(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
     with pytest.raises(ValueError, match="head width"):
-        qq, kk, vv = _qkv(cuda, 4, 2, 64, 64, 48, torch.float32)
+        qq, kk, vv = _qkv(cuda, 4, 2, 64, 64, 320, torch.float32)
         flash_attention_cuda(qq, kk, vv)
     with pytest.raises(ValueError):   # 4 query heads over 3 kv heads
         flash_attention_cuda(q, k[:1].repeat(3, 1, 1), v[:1].repeat(3, 1, 1))
@@ -499,7 +589,13 @@ WKV_CASES = [  # bh, t, head size, chunk, decay shift, dtype
 ]
 
 
-@pytest.mark.parametrize("bh,t,kk,chunk,shift,dtype", WKV_CASES)
+@pytest.mark.parametrize("bh,t,kk,chunk,shift,dtype", WKV_CASES + [
+    (2, 64, 16, 8, -4.0, torch.float32),       # chunk 8, head size 16: the reduced configs
+    (3, 100, 16, 8, -1.0, torch.bfloat16),     # chunk 8, ragged, strong decay
+    (2, 72, 32, 8, -4.0, torch.float32),
+    (2, 60, 64, 8, -1.0, torch.float32),       # chunk 8, K 64: threads past column 8 idle
+    (2, 90, 64, 8, -6.0, torch.bfloat16),
+])
 def test_wkv_kernel_matches_plain(cuda, bh, t, kk, chunk, shift, dtype):
     r, k, v, lw, u = _wkv_inputs(cuda, (bh, t, kk), (bh, kk), shift, dtype, seed=t + kk)
     before = wkv_cuda.launches
@@ -553,3 +649,5 @@ def test_wkv_wrapper_rejects_bad_inputs(cuda):
         wkv_cuda(rr, kk_, vv, ll, uu)
     with pytest.raises(ValueError, match="chunk"):
         wkv_cuda(r, k, v, lw, u, chunk=48)
+    with pytest.raises(ValueError, match="chunk"):
+        wkv_cuda(r, k, v, lw, u, chunk=4)

@@ -15,7 +15,12 @@ from repro.kernels.flash_attn.ops import flash_sdpa as jax_flash_sdpa  # noqa: E
 from repro.kernels.flash_attn.ref import attention_ref  # noqa: E402
 from repro.models.attention import _causal_mask as jax_causal_mask  # noqa: E402
 from repro.models.attention import _sdpa as jax_sdpa  # noqa: E402
-from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.flash_attn.kernel import (  # noqa: E402
+    KERNEL_WIDTHS,
+    flash_attention_cuda,
+    kernel_width,
+    pad_head_width,
+)
 from repro_torch.kernels.flash_attn.ops import flash_sdpa  # noqa: E402
 from repro_torch.kernels.flash_attn.ref import flash_attention_plain  # noqa: E402
 from repro_torch.models.attention import _causal_mask, _sdpa  # noqa: E402
@@ -182,3 +187,51 @@ def test_cpu_tensors_launch_nothing():
     assert flash_attention_cuda.launches == before
     want = flash_attention_plain(tq, tk.repeat(2, 1, 1), tv.repeat(2, 1, 1), sm_scale=0.2)
     torch.testing.assert_close(out, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("window", [0, 8])
+def test_reduced_config_width_matches_jax_op_and_model_sdpa(window):
+    """The reduced configs' attention (``ModelConfig.reduced``: hd 16, H 4,
+    KVH 2, f32, window 8 where the model has one): the port's op on the
+    CPU == the JAX op (Pallas kernel in interpret mode) and the JAX
+    model's ``_sdpa``."""
+    b, s, h, kvh, hd = 2, 48, 4, 2, 16
+    (q, k, v), (tq, tk, tv) = _both(_normal(16 + window, (b, s, h, hd), (b, s, kvh, hd),
+                                            (b, s, kvh, hd)))
+    got = flash_sdpa(tq, tk, tv, causal=True, window=window, device="cpu")
+    assert got.shape == (b, s, h, hd) and got.dtype == torch.float32
+    want_op = jax_flash_sdpa(q, k, v, causal=True, window=window, bq=16, bk=16)
+    want_model = jax_sdpa(q, k, v, jax_causal_mask(s, s, 0, window=window))
+    np.testing.assert_allclose(_f32(got), _f32(want_op), atol=3e-5)
+    np.testing.assert_allclose(_f32(got), _f32(want_model), atol=3e-5)
+
+
+@pytest.mark.parametrize("hd,width", [(1, 16), (16, 16), (17, 32), (48, 64), (80, 128),
+                                      (128, 128), (200, 256), (256, 256)])
+def test_kernel_width_is_the_next_kernel_width(hd, width):
+    assert kernel_width(hd) == width and width in KERNEL_WIDTHS
+
+
+def test_kernel_width_above_256_raises():
+    with pytest.raises(ValueError, match="256"):
+        kernel_width(257)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,causal,window", [(48, True, 0), (80, False, 0), (1, True, 5),
+                                              (100, True, 7)])
+def test_pad_then_plain_then_cut_is_plain(hd, causal, window, dtype):
+    """What the wrapper does on the card for a width the kernels lack, with
+    the plain version in the kernel's place: zero columns in q, k and v,
+    the caller's sm_scale (1/sqrt(hd), not 1/sqrt(width)), the padded
+    columns cut off; equal bit for bit to the plain version at hd."""
+    bh, kvh, sq, skv = 4, 2, 40, 33
+    _, (q, k, v) = _both(_normal(hd, (bh, sq, hd), (kvh, skv, hd), (kvh, skv, hd)))
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    kw = dict(causal=causal, sm_scale=hd ** -0.5, window=window)
+    width = kernel_width(hd)
+    padded = [pad_head_width(x, width) for x in (q, k, v)]
+    assert padded[0].shape == (bh, sq, width) and not padded[0][..., hd:].any()
+    got = flash_attention_plain(*padded, **kw)
+    assert not got[..., hd:].any()
+    assert torch.equal(got[..., :hd], flash_attention_plain(q, k, v, **kw))

@@ -14,7 +14,7 @@ from repro.kernels.wkv.kernel import wkv_pallas  # noqa: E402
 from repro.kernels.wkv.ops import wkv as jax_wkv  # noqa: E402
 from repro.kernels.wkv.ref import wkv_sequential  # noqa: E402
 from repro.models.rwkv6 import _chunked_wkv as jax_chunked_wkv  # noqa: E402
-from repro_torch.kernels.wkv.kernel import wkv_cuda  # noqa: E402
+from repro_torch.kernels.wkv.kernel import CHUNKS, wkv_cuda  # noqa: E402
 from repro_torch.kernels.wkv.ops import wkv  # noqa: E402
 from repro_torch.kernels.wkv.ref import wkv_plain  # noqa: E402
 from repro_torch.models.rwkv6 import CLAMP, _chunked_wkv  # noqa: E402
@@ -80,6 +80,23 @@ def test_op_matches_jax_op_and_model(decay_shift, t, chunk):
     assert got.shape == (b, t, h, kk) and got.dtype == torch.float32
     want_op = np.asarray(jax_wkv(*_jax(arrays), chunk=chunk))
     np.testing.assert_allclose(got.numpy(), want_op, atol=3e-4, rtol=3e-4)
+    if t % chunk == 0:
+        want_model = np.asarray(jax_chunked_wkv(*_jax(arrays), chunk=chunk))
+        np.testing.assert_allclose(got.numpy(), want_model, atol=3e-4, rtol=3e-4)
+
+
+@pytest.mark.parametrize("t", [64, 60])   # 60: ragged, the JAX op pads to 64
+def test_reduced_config_chunk_matches_jax_op(t):
+    """The reduced configs' time mix (``ModelConfig.reduced``: head size
+    16, chunk 8): the port's op on the CPU == the JAX op (Pallas kernel in
+    interpret mode), and the kernel's wrapper takes chunk 8."""
+    b, h, kk, chunk = 2, 4, 16, 8
+    assert chunk in CHUNKS
+    arrays = _inputs((b, t, h, kk), (h, kk), seed=t + 8, decay_shift=-1.0)
+    got = wkv(*_torch(arrays), chunk=chunk, device="cpu")
+    assert got.shape == (b, t, h, kk) and got.dtype == torch.float32
+    want = np.asarray(jax_wkv(*_jax(arrays), chunk=chunk))
+    wkv_close(got, torch.from_numpy(want.copy()))
     if t % chunk == 0:
         want_model = np.asarray(jax_chunked_wkv(*_jax(arrays), chunk=chunk))
         np.testing.assert_allclose(got.numpy(), want_model, atol=3e-4, rtol=3e-4)
@@ -151,6 +168,7 @@ def _split_model(r, k, v, lw, u, chunk):
     (2, 256, 32, 64, -1.0),    # strong decay: the ±30 clamps bite
     (2, 200, 64, 128, -1.0),   # ragged, strong decay
     (2, 512, 16, 16, -1.0),    # 32 chunks of 16
+    (2, 100, 16, 8, -1.0),     # chunk 8, the reduced configs', ragged
 ])
 def test_split_model_matches_plain_and_pallas(bh, t, kk, chunk, shift):
     arrays = _inputs((bh, t, kk), (bh, kk), seed=t * kk + chunk, decay_shift=shift)
