@@ -73,6 +73,25 @@ and, at the widths of models the repo supports (S = 4096):
            again at B 16; then the op wkv, the main path, against the
            model's _chunked_wkv (f32).
 
+and, through the entry points a user calls:
+
+  phase 9  the paper's three drivers, BF, IIB without the fused kernel and
+           IIIB (masked superset index, threshold in the carry), each
+           block step merging through topk_merge: for each, a cached
+           SparseKNNIndex built at synthetic-10k and queried three times
+           (all 10,000 rows; equal to each other, to 256 float64 scipy
+           rows and to phase 2's fused result; 5 dispatches, 5 host syncs
+           and 25 topk_merge launches a query), with build and query
+           times, the held and peak device memory, the work counters,
+           IIIB's threshold traces and kept share, and a torch.profiler
+           breakdown of one query's device time by kernel group; then
+           knn_join of 2048 rows for each driver and by default (iiib),
+           bit for bit the cached rows; IIIB with a 5% warm start; the
+           three drivers cached on spectra at the yeast-worm config's
+           widths (dim 20,000, 80 peaks a row; n_r 2,048, n_s 20,480)
+           against scipy; and topk_merge on one IIIB block step's
+           (2048, 2048) offers, bit for bit its plain version, timed.
+
 Every flash_attn and wkv comparison goes through repro_torch.testing
 (flash_close, wkv_close: one tolerance table with the card tests) and
 prints the largest share of its tolerance that any element used.
@@ -877,6 +896,239 @@ def phase8_full_width(dev, name, usage, reset_counts, counters):
                     max(err16, op_err16), max(used, op_used), max(used16, op_used16))
 
 
+# Phase 9: the paper's three drivers (BF, IIB without the fused kernel,
+# IIIB with its masked superset index) through SparseKNNIndex and knn_join
+# at synthetic-10k, then at the yeast-worm config's widths
+# (src/repro/configs/paper_knn.py:22: dim 20,000, 80 peaks a row) cut to
+# n_s = 20,480 and n_r = 2,048
+DRIVERS = ("bf", "iib", "iiib")
+SPECTRA = (2048, 20_480, 20_000, 80)   # n_r, n_s, dim, peaks a row
+QUERIES = 3
+
+
+KERNEL_GROUPS = (  # (group, pattern in the CUDA kernel's name), first match wins
+    ("topk_merge", r"topk_merge"),
+    ("fp32 products (cuBLAS)", r"gemm|Gemm|cutlass"),
+    ("index_add_", r"indexFunc|index_add"),
+    ("scatter/gather (densify, masks)", r"scatter|gather|index_put|indexing|Index"),
+    ("scans (cumsum)", r"scan|cumsum"),
+    ("reductions", r"reduce"),
+    ("elementwise (where, add, fill, copy)", r"elementwise|vectorized|fill|copy|Copy|where"),
+)
+
+
+def device_profile(fn):
+    """(device busy ms, {group: (ms, kernels)}) of one call of ``fn`` from
+    torch.profiler: each CUDA kernel's time, grouped by name (KERNEL_GROUPS,
+    else "other").  One stream, so busy = the kernels' sum."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    groups, busy = {}, 0.0
+    for evt in prof.key_averages():
+        total = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
+        if not total:
+            continue
+        group = next((g for g, pat in KERNEL_GROUPS if re.search(pat, evt.key)), "other")
+        ms, n = groups.get(group, (0.0, 0))
+        groups[group] = (ms + total / 1e3, n + evt.count)
+        busy += total / 1e3
+    return busy, groups
+
+
+def print_profile(label, wall_s, busy, groups):
+    parts = "; ".join(f"{g} {ms:.2f} ms ({n} kernels)"
+                      for g, (ms, n) in sorted(groups.items(), key=lambda x: -x[1][0]))
+    idle = 1.0 - busy / (wall_s * 1e3) if wall_s > 0 else float("nan")
+    print(f"  {label} profile: device busy {busy:.2f} ms of the median query's "
+          f"{wall_s * 1e3:.2f} ms (idle share {idle:.3f}): {parts}")
+
+
+def kept_share(index, stats, r_blocks):
+    """IIIB's kept list entries over the superset's, for one query."""
+    return stats.list_entries / (r_blocks * sum(b.list_total for b in index._blocks))
+
+
+def phase9_cached(dev, R, S, rows, o_s, o_i, fused, reset_counts):
+    """Each driver cached: build, then QUERIES queries of all of R, every
+    count read from 0 around each query.  Returns ({algorithm: (index,
+    last result)}, topk_merge launches)."""
+    from repro_torch.core.engine import JoinSpec, JoinStats, SparseKNNIndex
+    from repro_torch.kernels.topk_merge.kernel import topk_merge_cuda
+    from repro_torch.testing import assert_topk_close
+
+    n_r = R.num_vectors
+    r_blocks, s_blocks = -(-n_r // BLOCK), -(-S.num_vectors // BLOCK)
+    out, launches = {}, 0
+    for alg in DRIVERS:
+        spec = JoinSpec(k=K, algorithm=alg, r_block=BLOCK, s_block=BLOCK, tile=TILE)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        index = SparseKNNIndex.build(S, spec)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        held = torch.cuda.memory_allocated() - before
+        peak = torch.cuda.max_memory_allocated()
+        results, times = [], []
+        for _ in range(QUERIES):
+            stats = JoinStats()
+            reset_counts()
+            t0 = time.perf_counter()
+            res = index.query(R, stats=stats)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            merges = topk_merge_cuda.launches
+            launches += merges
+            assert merges == r_blocks * s_blocks, (alg, merges)
+            assert stats.device_dispatches == stats.host_syncs == r_blocks, (alg, stats)
+            results.append(res)
+        assert index.stats.index_builds == (0 if alg == "bf" else s_blocks), index.stats
+        profile = device_profile(lambda: index.query(R))
+        last = results[-1]
+        for res in results[:-1]:
+            assert torch.equal(res.scores, last.scores) and torch.equal(res.ids, last.ids), alg
+        assert last.scores.shape == (n_r, K) and bool(torch.isfinite(last.scores).all())
+        o_err = assert_topk_close(last.scores.cpu().numpy()[rows], last.ids.cpu().numpy()[rows],
+                                  o_s, o_i, RTOL, ATOL)
+        line = (f"phase 9 {alg} cached: build {build_s:.3f} s (holds {held / 2**20:.1f} MiB, "
+                f"peak allocated {peak / 2**20:.1f} MiB), queries "
+                f"{'; '.join(f'{t:.4f}' for t in times)} s (median "
+                f"{float(np.median(times)):.4f}), per query dispatches "
+                f"{stats.device_dispatches} host syncs {stats.host_syncs} topk_merge launches "
+                f"{merges}, tiles_scored {stats.tiles_scored}, list_entries "
+                f"{stats.list_entries}, dense_pairs {stats.dense_pairs}; 256 rows vs float64 "
+                f"scipy max|dscore|={o_err:.3e}")
+        if fused is not None:
+            f_err = assert_topk_close(last.scores.cpu(), last.ids.cpu(), fused.scores.cpu(),
+                                      fused.ids.cpu(), RTOL, ATOL)
+            line += f", all rows vs the fused path max|dscore|={f_err:.3e}"
+        print(line)
+        print_profile(alg, float(np.median(times)), *profile)
+        if alg == "iiib":
+            print(f"  iiib kept share {kept_share(index, stats, r_blocks):.4f} of the superset's "
+                  f"{sum(b.list_total for b in index._blocks)} entries per R block")
+            for i, trace in enumerate(stats.min_prune_trace):
+                print(f"  iiib R block {i} threshold trace {np.round(trace, 6).tolist()}")
+        out[alg] = (index, last)
+    return out, launches
+
+
+def phase9_drivers(dev, name, R, S, rows, o_s, o_i, fused, reset_counts):
+    """Phase 9 (see the module docstring).  Returns (topk_merge launches on
+    the counted runs, the drivers' merge case: max |Δ|, ms, plain ms,
+    bound ms and what bounds it)."""
+    from repro_torch.core import iiib as iiib_mod
+    from repro_torch.core.blocknl import knn_join
+    from repro_torch.core.engine import JoinSpec, JoinStats, SparseKNNIndex
+    from repro_torch.kernels.topk_merge.kernel import topk_merge_cuda
+    from repro_torch.kernels.topk_merge.ref import topk_merge_plain
+    from repro_torch.sparse.datagen import spectra_like
+    from repro_torch.testing import assert_topk_close
+
+    s_blocks = -(-S.num_vectors // BLOCK)
+    cached, launches = phase9_cached(dev, R, S, rows, o_s, o_i, fused, reset_counts)
+
+    # streaming: knn_join of the first R block, per algorithm and by default
+    head = R.rows(0, BLOCK)
+    for alg in DRIVERS + (None,):
+        kw = {} if alg is None else {"algorithm": alg}
+        stats = JoinStats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = knn_join(head, S, K, r_block=BLOCK, s_block=BLOCK, tile=TILE, stats=stats, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        merges = topk_merge_cuda.launches
+        launches += merges
+        want = cached[alg or "iiib"][1]
+        assert merges == s_blocks, (alg, merges)
+        assert stats.device_dispatches == s_blocks * (1 if alg == "bf" else 2), (alg, stats)
+        assert stats.index_builds == (0 if alg == "bf" else s_blocks), (alg, stats)
+        assert torch.equal(out.scores, want.scores[:BLOCK]), alg
+        assert torch.equal(out.ids, want.ids[:BLOCK]), alg
+        print(f"phase 9 {alg or 'default (iiib)'} streaming: knn_join of {BLOCK} rows in "
+              f"{wall:.4f} s, dispatches {stats.device_dispatches} host syncs "
+              f"{stats.host_syncs} index builds {stats.index_builds} topk_merge launches "
+              f"{merges}; bit-identical to the cached rows")
+
+    # warm start: a 5% sample of S seeds IIIB's threshold
+    iiib_index, iiib_res = cached["iiib"]
+    ws_spec = JoinSpec(k=K, algorithm="iiib", r_block=BLOCK, s_block=BLOCK, tile=TILE,
+                       warm_start=0.05)
+    ws_index = SparseKNNIndex.build(S, ws_spec)
+    cold, warm = JoinStats(), JoinStats()
+    iiib_index.query(R, stats=cold)
+    reset_counts()
+    t0 = time.perf_counter()
+    ws_res = ws_index.query(R, stats=warm)
+    torch.cuda.synchronize()
+    ws_s = time.perf_counter() - t0
+    r_blocks = -(-R.num_vectors // BLOCK)
+    merges = topk_merge_cuda.launches
+    launches += merges
+    assert merges == r_blocks * (s_blocks + 1), merges
+    ws_err = assert_topk_close(ws_res.scores.cpu(), ws_res.ids.cpu(), iiib_res.scores.cpu(),
+                               iiib_res.ids.cpu(), RTOL, ATOL)
+    assert warm.list_entries <= cold.list_entries, (warm.list_entries, cold.list_entries)
+    print(f"phase 9 iiib warm_start 0.05: query {ws_s:.4f} s, topk_merge launches {merges}, "
+          f"kept entries {warm.list_entries} (cold {cold.list_entries}; share "
+          f"{kept_share(ws_index, warm, r_blocks):.4f}), vs cached iiib max|dscore|={ws_err:.3e}, "
+          f"first trace {np.round(warm.min_prune_trace[0], 6).tolist()}")
+
+    # spectra: the yeast-worm config's widths, cut in rows
+    n_r, n_s, dim, peaks_mean = SPECTRA
+    t0 = time.perf_counter()
+    sR = spectra_like(n_r, dim=dim, peaks_mean=peaks_mean, seed=0)
+    sS = spectra_like(n_s, dim=dim, peaks_mean=peaks_mean, seed=1)
+    print(f"data: spectra R {n_r} x S {n_s} at dim {dim} (features a row: R "
+          f"{float(sR.nnz.double().mean()):.1f}, S {float(sS.nnz.double().mean()):.1f}) "
+          f"generated in {time.perf_counter() - t0:.2f} s")
+    s_rows = np.sort(np.random.default_rng(1).choice(n_r, size=256, replace=False))
+    so_s, so_i = scipy_topk(sR, sS, s_rows, K)
+    spectra, spectra_launches = phase9_cached(dev, sR, sS, s_rows, so_s, so_i, None,
+                                              reset_counts)
+    launches += spectra_launches
+    for alg in DRIVERS[1:]:
+        assert_topk_close(spectra[alg][1].scores.cpu(), spectra[alg][1].ids.cpu(),
+                          spectra["bf"][1].scores.cpu(), spectra["bf"][1].ids.cpu(), RTOL, ATOL)
+    del spectra, sR, sS
+
+    # the kernel at the drivers' shapes: the offers of IIIB's last block
+    # step for R block 0, mostly -inf, against the plain version
+    captured = []
+    real_step = iiib_mod.merge_step
+
+    def capture(state, scores, ids):
+        captured.append((state.scores.clone(), state.ids.clone(), scores.clone(), ids.clone()))
+        return real_step(state, scores, ids)
+
+    iiib_mod.merge_step = capture
+    try:
+        iiib_index.query(head)
+    finally:
+        iiib_mod.merge_step = real_step
+    m_args = captured[-1]
+    offered = float(torch.isfinite(m_args[2]).double().mean())
+    got, want = topk_merge_cuda(*m_args), topk_merge_plain(*m_args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    err = max_abs_err(got[0], want[0])
+    turns = [cuda_ms(lambda: fn(*m_args), reps=20)
+             for fn in (topk_merge_plain, topk_merge_cuda, topk_merge_cuda, topk_merge_plain)]
+    m_bytes = nbytes(*m_args, *got)
+    m_bound, m_by = bound(m_args[2].numel() * 1.0, m_bytes, name)
+    print(f"phase 9 topk_merge at the drivers' shapes: N={m_args[2].shape[0]} "
+          f"M={m_args[2].shape[1]} k={K}, {offered:.4f} of the offers finite, bit-identical to "
+          f"the plain version; in turns (plain, kernel, kernel, plain) "
+          f"{'; '.join(f'{x:.4f}' for x in turns)} ms, bound {m_bound:.4f} ms ({m_by})")
+    return launches, (err, turns[1], turns[0], m_bound, m_by)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1208,6 +1460,13 @@ def main():
           f"{max(wkv_err16, wkv_edge[torch.bfloat16][0]):.3e} (tol used "
           f"{max(wkv_used16, wkv_edge[torch.bfloat16][1]):.3f})")
 
+    # phase 9: the paper's three drivers (counts from 0 around each main-path run)
+    t0 = time.perf_counter()
+    driver_merges, driver_merge_case = phase9_drivers(dev, name, R, S, rows, o_s, o_i, q2,
+                                                      reset_counts)
+    print(f"phase 9: {time.perf_counter() - t0:.1f} s, topk_merge launches on its main-path "
+          f"runs {driver_merges}")
+
     print(json.dumps({"kernels": [
         {
             "name": "knn_topk",
@@ -1240,8 +1499,8 @@ def main():
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/topk_merge.cu",
             "replaces": "src/repro/kernels/topk_merge/kernel.py:52",
-            "launches": unfused_counts[1] + split_counts[1],
-            "max_abs_err": merge_err,
+            "launches": unfused_counts[1] + split_counts[1] + driver_merges,
+            "max_abs_err": max(merge_err, driver_merge_case[0]),
             "ms": merge_ms,
             "plain_ms": merge_plain_ms,
             "bound_ms": merge_bound_ms,

@@ -29,9 +29,14 @@ def knn_join(
     device=None,
 ) -> TopKState:
     """R ⋈_KNN S on ``device`` (CUDA unless named).  Returns a TopKState
-    over all of R (global S ids).  Only ``algorithm="iib"`` with
-    ``use_kernel=True`` is ported; the other settings raise
-    ``NotImplementedError``."""
+    over all of R (global S ids).
+
+    ``algorithm`` is the paper's BF, IIB or IIIB; ``use_kernel`` routes
+    IIB's scoring through the fused score→top-k kernel.  ``warm_start``
+    (IIIB only) first joins each R block against a random
+    ``warm_start``-fraction sample of S (drawn with ``seed``), so the
+    MinPruneScore is live from the first S block; the sampled rows are
+    masked out of their home blocks, so each S row is offered once."""
     if algorithm not in ("bf", "iib", "iiib"):
         raise ValueError(f"unknown algorithm {algorithm!r}")
     n_r, n_s = R.num_vectors, S.num_vectors

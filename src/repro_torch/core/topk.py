@@ -8,8 +8,9 @@ k candidates have been seen) and ``min_prune_score`` its min over a block
 Tie order is part of the contract: the earliest-offered candidate wins.
 ``topk_update`` therefore merges with a *stable* descending sort of
 ``[state, candidates]`` and keeps the first k — ``torch.topk`` promises no
-order among equal scores.  ``merge_topk_states`` merges two states with
-the same tie order, through the topk_merge kernel on CUDA.
+order among equal scores.  ``merge_step`` (the join drivers' block step) and
+``merge_topk_states`` merge with the same tie order, through the
+topk_merge kernel on CUDA.
 """
 from __future__ import annotations
 
@@ -51,6 +52,14 @@ def topk_update(state: TopKState, new_scores: torch.Tensor, new_ids: torch.Tenso
     must carry score -inf.
     """
     return TopKState(*topk_merge_plain(state.scores, state.ids, new_scores, new_ids))
+
+
+def merge_step(state: TopKState, new_scores: torch.Tensor, new_ids: torch.Tensor) -> TopKState:
+    """A join driver's block step: ``topk_update``'s merge (incumbents and
+    earlier candidates win ties) through ``topk_merge_cuda``, the kernel on
+    CUDA states and its plain version on CPU states.  ``new_ids`` is (M,)
+    (shared columns) or (N, M)."""
+    return TopKState(*topk_merge_cuda(state.scores, state.ids, new_scores, new_ids))
 
 
 def merge_topk_states(a: TopKState, b: TopKState) -> TopKState:

@@ -1,8 +1,13 @@
-"""Synthetic sparse vectors: the paper's synthetic setting (§5.1).
+"""Synthetic sparse vectors mirroring the paper's evaluation data.
 
-A numpy copy of ``repro.sparse.datagen.synthetic_sparse``: for the same
-seed it draws the same random numbers in the same order, so the arrays
-are byte-identical to the JAX package's.
+Numpy copies of ``repro.sparse.datagen``: for the same seed they draw the
+same random numbers in the same order, so the arrays are byte-identical
+to the JAX package's.
+
+* :func:`synthetic_sparse` — the paper's synthetic setting (§5.1).
+* :func:`spectra_like` — MS/MS-spectrum-like vectors after the Yeast /
+  Worm datasets (§5.2): m/z binned at 0.1 Da (dim = m/z * 10), clustered
+  peak positions and exponentially distributed intensities.
 """
 from __future__ import annotations
 
@@ -35,6 +40,42 @@ def synthetic_sparse(
         np.concatenate(rows),
         np.concatenate(cols).astype(np.int64),
         np.concatenate(vals).astype(np.float32),
+        num_vectors=num_vectors,
+        dim=dim,
+        max_features=f,
+    )
+
+
+def spectra_like(
+    num_vectors: int,
+    dim: int = 20_000,          # m/z up to 2000 Da at 0.1 granularity
+    peaks_mean: int = 80,
+    seed: int = 0,
+    max_features: int | None = None,
+) -> SparseBatch:
+    """MS/MS-like spectra: clustered peak positions + exponential intensities."""
+    rng = np.random.default_rng(seed)
+    rows, cols, vals = [], [], []
+    for i in range(num_vectors):
+        k = max(4, int(rng.poisson(peaks_mean)))
+        # peak positions cluster around a random precursor-mass ladder
+        base = rng.uniform(0.1, 0.9) * dim
+        pos = np.clip(
+            (base + rng.normal(0, dim * 0.15, size=k)).astype(np.int64), 0, dim - 1
+        )
+        pos = np.unique(pos)
+        inten = rng.exponential(scale=1.0, size=len(pos)).astype(np.float32)
+        inten /= max(inten.max(), 1e-6)  # normalize like preprocessed spectra
+        rows.append(np.full(len(pos), i, dtype=np.int64))
+        cols.append(pos)
+        vals.append(inten)
+    f = max_features
+    if f is None:
+        f = max(int(np.bincount(np.concatenate(rows)).max()), 1)
+    return SparseBatch.from_coo(
+        np.concatenate(rows),
+        np.concatenate(cols),
+        np.concatenate(vals),
         num_vectors=num_vectors,
         dim=dim,
         max_features=f,

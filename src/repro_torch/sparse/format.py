@@ -15,6 +15,7 @@ and the engine moves what it needs to its compute device.
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -55,6 +56,22 @@ class SparseBatch:
             indices=self.indices[lo:hi], values=self.values[lo:hi],
             nnz=self.nnz[lo:hi], dim=self.dim,
         )
+
+    @classmethod
+    def from_dense(cls, dense: np.ndarray, max_features: int | None = None) -> "SparseBatch":
+        """Pack a dense (N, D) array (host-side; the result lies on the CPU)."""
+        dense = np.asarray(dense)
+        n, d = dense.shape
+        nnz = (dense != 0).sum(axis=1).astype(np.int32)
+        f = int(max_features if max_features is not None else max(int(nnz.max(initial=0)), 1))
+        indices = np.full((n, f), d, dtype=np.int32)
+        values = np.zeros((n, f), dtype=np.float32)
+        for i in range(n):
+            (nz,) = np.nonzero(dense[i])
+            nz = nz[:f]
+            indices[i, : len(nz)] = nz
+            values[i, : len(nz)] = dense[i, nz]
+        return from_arrays(indices, values, np.minimum(nnz, f), d)
 
     @classmethod
     def from_coo(
@@ -127,3 +144,43 @@ def tile_occupancy(batch: SparseBatch, tile: int = DEFAULT_TILE) -> torch.Tensor
     occ = torch.zeros((batch.num_vectors, nt + 1), dtype=torch.int32, device=idx.device)
     occ.scatter_add_(1, tid, (idx < batch.dim).to(torch.int32))
     return occ[:, :nt] > 0
+
+
+def dim_frequency(batch: SparseBatch) -> torch.Tensor:
+    """(D,) int32 — number of vectors in the batch with a non-zero in each
+    dim (the paper's IIIB walks dims most frequent first)."""
+    valid = batch.indices < batch.dim
+    idx = torch.where(valid, batch.indices, batch.dim).long().reshape(-1)
+    counts = torch.zeros(batch.dim + 1, dtype=torch.int32, device=batch.device)
+    counts.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
+    return counts[: batch.dim]
+
+
+def max_weight_per_dim(batch: SparseBatch) -> torch.Tensor:
+    """(D,) — ``maxWeight_d(B_r)`` from the paper: max value of dim d over
+    the batch (0 where no vector has the dim)."""
+    valid = batch.indices < batch.dim
+    idx = torch.where(valid, batch.indices, batch.dim).long().reshape(-1)
+    vals = torch.where(valid, batch.values, 0.0).reshape(-1)
+    out = torch.zeros(batch.dim + 1, dtype=batch.values.dtype, device=batch.device)
+    out.scatter_reduce_(0, idx, vals, "amax", include_self=True)
+    return out[: batch.dim]
+
+
+def reorder_dims(batch: SparseBatch, perm: torch.Tensor) -> SparseBatch:
+    """Apply a dimension permutation: new_dim_of[d] = perm[d].  Rows are not
+    re-sorted."""
+    lut = torch.cat([perm.to(torch.int32),
+                     torch.tensor([batch.dim], dtype=torch.int32, device=perm.device)])
+    new_idx = lut[torch.clamp(batch.indices.long(), max=batch.dim)]
+    return SparseBatch(indices=new_idx, values=batch.values, nnz=batch.nnz, dim=batch.dim)
+
+
+def frequency_permutation(freq: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(perm, inv): perm[d] = new index of dim d in descending frequency
+    order (stable: equal frequencies keep dim order), inv = the order."""
+    order = torch.argsort(-freq, stable=True)    # order[j] = old dim at new pos j
+    d = freq.shape[0]
+    perm = torch.zeros(d, dtype=torch.int32, device=freq.device)
+    perm[order] = torch.arange(d, dtype=torch.int32, device=freq.device)
+    return perm, order

@@ -2,9 +2,11 @@
 topk_merge_cuda (k <= 128 and the large-k kernel), flash_attention_cuda
 (f32 in 3xTF32 and bf16, both on the tensor cores, at every head width
 up to 256) and wkv_cuda (chunks 8 to 128) against their plain versions,
-merge_topk_states, the public ops, the wrappers' input checks, and the
+merge_topk_states, the public ops, the wrappers' input checks, the
 fused-kernel join path in both modes, with the k > 128 route and a tile
-that is not a multiple of 4.
+that is not a multiple of 4, and the paper's three drivers (BF, IIB
+without the kernel, IIIB) in both modes, each block step merging through
+topk_merge_cuda.
 Every test here needs a CUDA device and skips without one.  The file imports neither jax
 nor repro, so it runs on a machine with the card alone:
 
@@ -16,7 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.blocknl import knn_join  # noqa: E402
-from repro_torch.core.engine import JoinSpec, SparseKNNIndex  # noqa: E402
+from repro_torch.core.engine import JoinSpec, JoinStats, SparseKNNIndex  # noqa: E402
 from repro_torch.core.topk import TopKState, init_topk, merge_topk_states, min_prune_score  # noqa: E402,E501
 from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.flash_attn.ops import flash_sdpa  # noqa: E402
@@ -40,7 +42,7 @@ from repro_torch.kernels.wkv.ops import wkv  # noqa: E402
 from repro_torch.kernels.wkv.ref import wkv_plain  # noqa: E402
 from repro_torch.models.attention import _causal_mask, _sdpa  # noqa: E402
 from repro_torch.models.rwkv6 import _chunked_wkv  # noqa: E402
-from repro_torch.sparse.datagen import synthetic_sparse  # noqa: E402
+from repro_torch.sparse.datagen import spectra_like, synthetic_sparse  # noqa: E402
 from repro_torch.sparse.format import tile_occupancy  # noqa: E402
 from repro_torch.testing import (  # noqa: E402
     assert_topk_close,
@@ -195,6 +197,95 @@ def test_join_large_k_and_odd_tile_on_card_match_cpu(cuda, k, tile):
         assert got.scores.shape == (300, k)
         assert_topk_close(got.scores.cpu().numpy(), got.ids.cpu().numpy(),
                           cpu.scores.numpy(), cpu.ids.numpy(), RTOL, ATOL)
+
+
+DRIVERS = ("bf", "iib", "iiib")
+
+
+def _driver_data():
+    """R 300 and S 700 rows at dim 2000: with r_block 128 and s_block 256
+    the last R block (44 rows) and the last S block (188) are ragged."""
+    return (synthetic_sparse(300, dim=2000, nnz_mean=40, seed=0),
+            synthetic_sparse(700, dim=2000, nnz_mean=40, seed=1))
+
+
+COUNTS = ("blocks", "tiles_scored", "list_entries", "dense_pairs", "index_builds",
+          "device_dispatches", "host_syncs")
+
+
+@pytest.mark.parametrize("algorithm", DRIVERS)
+def test_drivers_on_card_match_cpu_and_each_other(cuda, algorithm, monkeypatch):
+    """BF, IIB without the fused kernel and IIIB on the card, cached and
+    streaming (and knn_join): bit for bit each other, within tolerance of
+    the CPU path, the same counters, and one topk_merge_cuda launch per
+    block step; no plain merge, torch.sort or torch.topk on the way."""
+    R, S = _driver_data()
+    spec = JoinSpec(k=5, algorithm=algorithm, r_block=128, s_block=256)
+    cached_index = SparseKNNIndex.build(S, spec)
+    stream_index = SparseKNNIndex.build(S, spec, cache_device_blocks=False)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain merge ran on the card")
+
+    for where in ("repro_torch.kernels.topk_merge.kernel.topk_merge_plain",
+                  "repro_torch.core.topk.topk_update", "torch.sort", "torch.topk"):
+        monkeypatch.setattr(where, refuse)
+    before = topk_merge_cuda.launches
+    cached = cached_index.query(R)
+    assert topk_merge_cuda.launches - before == 3 * 3          # R blocks x S blocks
+    before = topk_merge_cuda.launches
+    stream = stream_index.query(R)
+    assert topk_merge_cuda.launches - before == 3 * 3
+    joined = knn_join(R, S, 5, algorithm=algorithm, r_block=128, s_block=256)
+    monkeypatch.undo()
+    assert cached.scores.device.type == "cuda"
+    for got in (stream, joined):
+        assert torch.equal(got.scores, cached.scores) and torch.equal(got.ids, cached.ids)
+    cpu_stats = {}
+    for mode in (True, False):
+        st = JoinStats()
+        cpu = SparseKNNIndex.build(S, spec, cache_device_blocks=mode, device="cpu").query(
+            R, stats=st)
+        cpu_stats[mode] = st
+        assert_topk_close(cached.scores.cpu().numpy(), cached.ids.cpu().numpy(),
+                          cpu.scores.numpy(), cpu.ids.numpy(), RTOL, ATOL)
+    for mode, res in ((True, cached), (False, stream)):
+        assert ({c: getattr(res.stats, c) for c in COUNTS}
+                == {c: getattr(cpu_stats[mode], c) for c in COUNTS})
+    if algorithm == "iiib":
+        for g, w in zip(cached.stats.min_prune_trace, cpu_stats[True].min_prune_trace):
+            np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL)
+
+
+def test_iiib_warm_start_on_card(cuda):
+    """IIIB's warm-start pass merges through the kernel too: one more
+    launch per R block; the CPU path's answer and kept entries."""
+    R, S = _driver_data()
+    spec = JoinSpec(k=5, algorithm="iiib", r_block=128, s_block=256, warm_start=0.1)
+    index = SparseKNNIndex.build(S, spec)
+    before = topk_merge_cuda.launches
+    res = index.query(R)
+    assert topk_merge_cuda.launches - before == 3 * (3 + 1)
+    stream = SparseKNNIndex.build(S, spec, cache_device_blocks=False).query(R)
+    assert torch.equal(res.scores, stream.scores) and torch.equal(res.ids, stream.ids)
+    cpu = SparseKNNIndex.build(S, spec, device="cpu").query(R)
+    assert_topk_close(res.scores.cpu().numpy(), res.ids.cpu().numpy(), cpu.scores.numpy(),
+                      cpu.ids.numpy(), RTOL, ATOL)
+    assert res.stats.list_entries == cpu.stats.list_entries
+    assert all(t[0] > -np.inf for t in res.stats.min_prune_trace)
+
+
+@pytest.mark.parametrize("algorithm", DRIVERS)
+def test_drivers_on_spectra_on_card_match_cpu(cuda, algorithm):
+    R, S = spectra_like(200, dim=20_000, seed=0), spectra_like(600, dim=20_000, seed=1)
+    spec = JoinSpec(k=5, algorithm=algorithm, r_block=128, s_block=256)
+    res = SparseKNNIndex.build(S, spec).query(R)
+    stream = SparseKNNIndex.build(S, spec, cache_device_blocks=False).query(R)
+    assert torch.equal(res.scores, stream.scores) and torch.equal(res.ids, stream.ids)
+    cpu = SparseKNNIndex.build(S, spec, device="cpu").query(R)
+    assert_topk_close(res.scores.cpu().numpy(), res.ids.cpu().numpy(), cpu.scores.numpy(),
+                      cpu.ids.numpy(), RTOL, ATOL)
+    assert res.stats.list_entries == cpu.stats.list_entries
 
 
 def _score_inputs(dev, nr, ns, dim, tile, br, bs):

@@ -1,9 +1,12 @@
-"""The port's fused-kernel join path (src/repro_torch: SparseKNNIndex with
-use_kernel=True, and knn_join) against the JAX engine and the dense oracle,
-on the CPU where the kernel's plain version runs.  Scores within rtol=1e-5,
-atol=1e-6, ids equal outside tie groups; tiles_scored and
-device_dispatches equal the reference's.  Also the k > 128 route
-(score_then_merge) and tiles that are not a multiple of 4."""
+"""The port's join engine (src/repro_torch: SparseKNNIndex and knn_join)
+against the JAX engine, the dense oracle and the port's own
+reference_join, on the CPU where the kernels' plain versions run: the
+fused-kernel IIB path (with the k > 128 route, score_then_merge, and
+tiles that are not a multiple of 4) and the paper's three drivers, BF,
+IIB without the kernel and IIIB, cached and streaming, with ragged
+blocks, warm start and a frozen superset order.  Scores within
+rtol=1e-5, atol=1e-6, ids equal outside tie groups; the work counters
+equal the reference's; cached equals streaming bit for bit."""
 import numpy as np
 import pytest
 
@@ -11,8 +14,10 @@ torch = pytest.importorskip("torch")
 
 from repro.core import knn_join as jax_knn_join  # noqa: E402
 from repro.core.engine import JoinSpec as JaxSpec  # noqa: E402
+from repro.core.engine import JoinStats as JaxStats  # noqa: E402
 from repro.core.engine import SparseKNNIndex as JaxIndex  # noqa: E402
 from repro.core.reference import oracle_knn  # noqa: E402
+from repro.sparse.datagen import spectra_like as jax_spectra  # noqa: E402
 from repro.sparse.datagen import synthetic_sparse as jax_synthetic  # noqa: E402
 from repro.sparse.format import densify  # noqa: E402
 from repro_torch.core.blocknl import knn_join  # noqa: E402
@@ -22,6 +27,7 @@ from repro_torch.core.engine import (  # noqa: E402
     SparseKNNIndex,
     plan,
 )
+from repro_torch.core.reference import HostCSR, reference_join  # noqa: E402
 from repro_torch.core.topk import init_topk  # noqa: E402
 from repro_torch.kernels.knn_score.ops import knn_score  # noqa: E402
 from repro_torch.kernels.knn_topk import ops as knn_topk_ops  # noqa: E402
@@ -209,18 +215,35 @@ def test_ops_need_cuda_unless_cpu_is_named(rs, monkeypatch, op):
 
 
 @pytest.mark.parametrize("kwargs,build_kwargs", [
-    (dict(algorithm="bf"), {}),
-    (dict(algorithm="iiib"), {}),
-    (dict(algorithm="iib"), {}),                       # IIB without the kernel
     (dict(algorithm="iib", use_kernel=True, accuracy="approx"), {}),
-    (dict(algorithm="iib", use_kernel=True, warm_start=0.1), {}),
     (dict(algorithm="iib", use_kernel=True), dict(calibration={"c2_unit_s": 1.0})),
-    (dict(algorithm="iib", use_kernel=True), dict(frozen_rank=np.arange(512))),
 ])
 def test_options_off_the_slice_raise(rs, kwargs, build_kwargs):
     _, _, _, pS, _, _ = rs
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
         SparseKNNIndex.build(pS, JoinSpec(k=5, **kwargs), device="cpu", **build_kwargs)
+
+
+@pytest.mark.parametrize("kwargs,build_kwargs", [
+    (dict(algorithm="bf"), {}),
+    (dict(algorithm="iiib"), {}),
+    (dict(algorithm="iib"), {}),                       # IIB without the kernel
+    (dict(algorithm="iib", use_kernel=True, warm_start=0.1), {}),
+    (dict(algorithm="iib", use_kernel=True), dict(frozen_rank=np.arange(512))),
+])
+def test_options_now_on_the_slice_match_jax_engine(rs, kwargs, build_kwargs):
+    """The options that raised before the three drivers were ported: each
+    now runs and equals the JAX engine (warm_start and frozen_rank touch
+    IIIB only, as in the reference)."""
+    R, S, pR, pS, osc, _ = rs
+    spec = dict(k=5, r_block=24, s_block=32, **kwargs)
+    jres = JaxIndex.build(S, JaxSpec(**spec), **build_kwargs).query(R)
+    res = SparseKNNIndex.build(pS, JoinSpec(**spec), device="cpu", **build_kwargs).query(pR)
+    assert_topk_close(res.scores.numpy(), res.ids.numpy(), np.asarray(jres.scores),
+                      np.asarray(jres.ids), RTOL, ATOL)
+    assert res.stats.device_dispatches == jres.stats.device_dispatches
+    assert res.stats.tiles_scored == jres.stats.tiles_scored
+    _oracle(res.scores.numpy(), osc)
 
 
 @pytest.mark.parametrize("method,args", [
@@ -248,3 +271,175 @@ def test_planner_matches_reference(rs):
             want.algorithm, want.r_block, want.s_block)
         assert got.cost_bf == pytest.approx(want.cost_bf)
         assert got.cost_iib == pytest.approx(want.cost_iib)
+
+
+# ---------------------------------------------------------------------------
+# the paper's three drivers through the engine: BF, IIB without the fused
+# kernel, IIIB with its masked superset index
+# ---------------------------------------------------------------------------
+
+COUNTERS = ("blocks", "tiles_scored", "list_entries", "dense_pairs", "index_builds",
+            "device_dispatches", "host_syncs")
+
+
+def _host(batch):
+    return HostCSR.from_padded(batch.indices.numpy(), batch.values.numpy(), batch.nnz.numpy(),
+                               batch.dim)
+
+
+def _same_counters(got: JoinStats, want):
+    assert {c: getattr(got, c) for c in COUNTERS} == {c: getattr(want, c) for c in COUNTERS}
+    assert len(got.min_prune_trace) == len(want.min_prune_trace)
+    for g, w in zip(got.min_prune_trace, want.min_prune_trace):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("algorithm", ["bf", "iib", "iiib"])
+@pytest.mark.parametrize("cached", [True, False])
+@pytest.mark.parametrize("r_block,s_block", [(24, 32), (20, 33)])
+def test_drivers_match_jax_engine_oracle_and_reference(rs, algorithm, cached, r_block, s_block):
+    """Each driver, cached and streaming, with even and ragged blocks:
+    scores and ids equal the JAX engine's (tolerance, ids outside tie
+    groups), every JoinStats counter equals its count, and the result
+    agrees with the dense oracle and the port's own reference_join."""
+    R, S, pR, pS, osc, _ = rs
+    spec = dict(k=5, algorithm=algorithm, r_block=r_block, s_block=s_block)
+    jstats, stats = JaxStats(), JoinStats()
+    jres = JaxIndex.build(S, JaxSpec(**spec), cache_device_blocks=cached).query(R, stats=jstats)
+    index = SparseKNNIndex.build(pS, JoinSpec(**spec), cache_device_blocks=cached, device="cpu")
+    res = index.query(pR, stats=stats)
+    assert_topk_close(res.scores.numpy(), res.ids.numpy(), np.asarray(jres.scores),
+                      np.asarray(jres.ids), RTOL, ATOL)
+    _same_counters(stats, jstats)
+    _oracle(res.scores.numpy(), osc)
+    ref_s, _ = reference_join(_host(pR), _host(pS), 5, algorithm=algorithm, r_block=r_block,
+                              s_block=s_block)
+    _oracle(res.scores.numpy(), np.where(ref_s > 0, ref_s, 0.0))
+    if cached and algorithm != "bf":
+        assert index.stats.index_builds == index.num_blocks
+
+
+@pytest.mark.parametrize("algorithm", ["bf", "iib", "iiib"])
+@pytest.mark.parametrize("r_block,s_block", [(24, 32), (20, 33), (48, 80)])
+def test_cached_equals_streaming_bit_for_bit(rs, algorithm, r_block, s_block):
+    """The cached walk and the per-pair loop give identical arrays (the
+    reference's test_scanned_driver_matches_per_pair_loop); the cached
+    drivers make one dispatch and one host sync per R block."""
+    _, _, pR, pS, _, _ = rs
+    spec = JoinSpec(k=5, algorithm=algorithm, r_block=r_block, s_block=s_block)
+    cached, stream = JoinStats(), JoinStats()
+    a = SparseKNNIndex.build(pS, spec, device="cpu").query(pR, stats=cached)
+    b = SparseKNNIndex.build(pS, spec, cache_device_blocks=False, device="cpu").query(
+        pR, stats=stream)
+    assert torch.equal(a.scores, b.scores) and torch.equal(a.ids, b.ids)
+    r_blocks = -(-48 // r_block)
+    assert cached.device_dispatches == cached.host_syncs == r_blocks
+    assert stream.device_dispatches >= r_blocks * -(-80 // s_block)
+    assert cached.list_entries == stream.list_entries
+    knn = knn_join(pR, pS, 5, algorithm=algorithm, r_block=r_block, s_block=s_block,
+                   device="cpu")
+    assert torch.equal(knn.scores, b.scores) and torch.equal(knn.ids, b.ids)
+
+
+@pytest.mark.parametrize("cached", [True, False])
+@pytest.mark.parametrize("warm_start,seed", [(0.0, 0), (0.2, 0), (0.2, 7)])
+@pytest.mark.parametrize("frozen", [False, True])
+def test_iiib_warm_start_and_frozen_rank_match_jax_engine(rs, cached, warm_start, seed, frozen):
+    """IIIB with a warm-start sample (the reference's sampler and seed) and
+    with a frozen superset order (here the identity): the JAX engine's
+    result, counters and threshold traces."""
+    R, S, pR, pS, osc, _ = rs
+    spec = dict(k=5, algorithm="iiib", r_block=24, s_block=20, warm_start=warm_start, seed=seed)
+    rank = np.arange(512, dtype=np.int32) if frozen else None
+    jstats, stats = JaxStats(), JoinStats()
+    jres = JaxIndex.build(S, JaxSpec(**spec), cache_device_blocks=cached,
+                          frozen_rank=rank).query(R, stats=jstats)
+    res = SparseKNNIndex.build(pS, JoinSpec(**spec), cache_device_blocks=cached, device="cpu",
+                               frozen_rank=rank).query(pR, stats=stats)
+    assert_topk_close(res.scores.numpy(), res.ids.numpy(), np.asarray(jres.scores),
+                      np.asarray(jres.ids), RTOL, ATOL)
+    _same_counters(stats, jstats)
+    _oracle(res.scores.numpy(), osc)
+    if warm_start and cached:
+        # the sample seeds MinPruneScore: live from the first block
+        assert all(t[0] > -np.inf for t in stats.min_prune_trace)
+
+
+def test_iiib_threshold_monotone_and_live_on_ragged_r_block(rs):
+    """The MinPruneScore carried through the walk only rises, and a ragged
+    final R block's padding rows do not pin it at -inf (the reference's
+    test_iiib_threshold_live_on_ragged_r_block); cached equals streaming."""
+    _, _, pR, pS, _, _ = rs
+    for ws in (0.0, 0.2):
+        spec = JoinSpec(k=5, algorithm="iiib", r_block=20, s_block=20, warm_start=ws)
+        stats = JoinStats()
+        res = SparseKNNIndex.build(pS, spec, device="cpu").query(pR, stats=stats)
+        assert len(stats.min_prune_trace) == 3               # blocks of 20, 20, 8
+        for trace in stats.min_prune_trace:
+            assert trace.shape == (5,)                       # seed + 4 S blocks
+            assert np.all(np.diff(trace) >= 0) and trace[-1] > -np.inf
+        stream = SparseKNNIndex.build(pS, spec, cache_device_blocks=False,
+                                      device="cpu").query(pR)
+        assert torch.equal(res.scores, stream.scores) and torch.equal(res.ids, stream.ids)
+
+
+def test_iiib_mask_prunes_entries_as_the_reference():
+    """The reference's test_iiib_mask_prunes_entries data: the mask keeps
+    fewer entries than the superset holds, the same count as the
+    reference's, and a warm start keeps no more."""
+    R = jax_synthetic(64, dim=4096, nnz_mean=24, nnz_std=6, seed=0)
+    S = jax_synthetic(256, dim=4096, nnz_mean=24, nnz_std=6, seed=1)
+    pR, pS = _port(R), _port(S)
+    osc, _ = oracle_knn(np.asarray(densify(R)), np.asarray(densify(S)), 3)
+    kept = {}
+    for ws in (0.0, 0.25):
+        spec = dict(k=3, algorithm="iiib", r_block=64, s_block=64, warm_start=ws)
+        index = SparseKNNIndex.build(pS, JoinSpec(**spec), device="cpu")
+        stats, jstats = JoinStats(), JaxStats()
+        res = index.query(pR, stats=stats)
+        JaxIndex.build(S, JaxSpec(**spec)).query(R, stats=jstats)
+        assert stats.list_entries == jstats.list_entries
+        assert stats.list_entries < sum(b.list_total for b in index._blocks)
+        kept[ws] = stats.list_entries
+        _oracle(res.scores.numpy(), osc)
+    assert kept[0.25] <= kept[0.0]
+
+
+@pytest.mark.parametrize("algorithm", ["bf", "iib", "iiib"])
+def test_spectra_drivers_match_jax_engine(algorithm):
+    """Spectra-shaped data (30 x 50 at dim 2000), cached and streaming."""
+    R, S = jax_spectra(30, dim=2000, seed=0), jax_spectra(50, dim=2000, seed=1)
+    pR, pS = _port(R), _port(S)
+    osc, _ = oracle_knn(np.asarray(densify(R)), np.asarray(densify(S)), 5)
+    spec = dict(k=5, algorithm=algorithm, r_block=16, s_block=16)
+    for cached in (True, False):
+        jstats, stats = JaxStats(), JoinStats()
+        jres = JaxIndex.build(S, JaxSpec(**spec), cache_device_blocks=cached).query(
+            R, stats=jstats)
+        res = SparseKNNIndex.build(pS, JoinSpec(**spec), cache_device_blocks=cached,
+                                   device="cpu").query(pR, stats=stats)
+        assert_topk_close(res.scores.numpy(), res.ids.numpy(), np.asarray(jres.scores),
+                          np.asarray(jres.ids), RTOL, ATOL)
+        _same_counters(stats, jstats)
+        _oracle(res.scores.numpy(), osc)
+
+
+def test_knn_join_default_algorithm_runs(rs):
+    """knn_join's default algorithm is IIIB, as the reference's."""
+    R, S, pR, pS, osc, _ = rs
+    stats = JoinStats()
+    out = knn_join(pR, pS, 5, r_block=24, s_block=32, stats=stats, device="cpu")
+    want = jax_knn_join(R, S, 5, r_block=24, s_block=32)
+    assert_topk_close(out.scores.numpy(), out.ids.numpy(), np.asarray(want.scores),
+                      np.asarray(want.ids), RTOL, ATOL)
+    assert stats.index_builds == 2 * 3 and len(stats.min_prune_trace) == 0
+    _oracle(out.scores.numpy(), osc)
+
+
+def test_planner_picks_a_driver_that_runs(rs):
+    """With the algorithm left open the planner picks BF or IIIB; both run."""
+    _, _, pR, pS, osc, _ = rs
+    for s_block in (32, 80):
+        index = SparseKNNIndex.build(pS, JoinSpec(k=5, s_block=s_block), device="cpu")
+        assert index.algorithm in ("bf", "iiib")
+        _oracle(index.query(pR).scores.numpy(), osc)

@@ -11,16 +11,22 @@ torch = pytest.importorskip("torch")
 
 from repro.kernels.knn_score.ops import active_lists as jax_active_lists  # noqa: E402
 from repro.kernels.knn_score.ops import dense_tiles_with_sentinel as jax_dense_tiles  # noqa: E402
+from repro.sparse import format as jax_format  # noqa: E402
+from repro.sparse.datagen import spectra_like as jax_spectra  # noqa: E402
 from repro.sparse.datagen import synthetic_sparse as jax_synthetic  # noqa: E402
 from repro.sparse.format import SparseBatch as JaxBatch  # noqa: E402
 from repro.sparse.format import tile_occupancy as jax_occupancy  # noqa: E402
 from repro_torch.core.index import dense_r_tiles  # noqa: E402
 from repro_torch.kernels.knn_score.ops import active_lists, dense_tiles_with_sentinel  # noqa: E402
-from repro_torch.sparse.datagen import synthetic_sparse  # noqa: E402
+from repro_torch.sparse.datagen import spectra_like, synthetic_sparse  # noqa: E402
 from repro_torch.sparse.format import (  # noqa: E402
     SparseBatch,
+    dim_frequency,
+    frequency_permutation,
     from_arrays,
+    max_weight_per_dim,
     num_tiles,
+    reorder_dims,
     tile_occupancy,
 )
 
@@ -116,6 +122,62 @@ def test_active_lists_byte_identical(br, bs):
     got = active_lists(r_occ, s_occ, br, bs)
     want = jax_active_lists(r_occ, s_occ, br, bs)
     assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("n,dim,peaks,seed", [(30, 2000, 80, 0), (50, 2000, 80, 1),
+                                              (12, 20_000, 80, 5), (40, 500, 20, 9)])
+def test_spectra_like_byte_identical(n, dim, peaks, seed):
+    _same(spectra_like(n, dim=dim, peaks_mean=peaks, seed=seed),
+          jax_spectra(n, dim=dim, peaks_mean=peaks, seed=seed))
+
+
+def test_spectra_like_max_features_cut():
+    _same(spectra_like(20, dim=1000, peaks_mean=40, seed=2, max_features=16),
+          jax_spectra(20, dim=1000, peaks_mean=40, seed=2, max_features=16))
+
+
+@pytest.mark.parametrize("max_features", [None, 5])
+def test_from_dense_matches_reference(max_features):
+    rng = np.random.default_rng(11)
+    dense = np.where(rng.random((15, 60)) < 0.15, rng.random((15, 60)), 0.0).astype(np.float32)
+    dense[3] = 0.0                                  # an empty row
+    _same(SparseBatch.from_dense(dense, max_features=max_features),
+          JaxBatch.from_dense(dense, max_features=max_features))
+
+
+def _both(kind, seed):
+    """The same batch in both packages: synthetic or spectra-shaped."""
+    if kind == "synthetic":
+        ref = jax_synthetic(60, dim=700, nnz_mean=25, nnz_std=6, seed=seed)
+    else:
+        ref = jax_spectra(40, dim=2000, seed=seed)
+    port = from_arrays(np.asarray(ref.indices), np.asarray(ref.values), np.asarray(ref.nnz),
+                       ref.dim)
+    return ref, port
+
+
+def _equal(got: torch.Tensor, want):
+    want = np.asarray(want)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("kind,seed", [("synthetic", 0), ("synthetic", 3), ("spectra", 1)])
+def test_dim_statistics_equal_reference(kind, seed):
+    """dim_frequency, max_weight_per_dim, frequency_permutation (stable:
+    ties keep dim order) and reorder_dims equal the reference's exactly."""
+    ref, port = _both(kind, seed)
+    freq = dim_frequency(port)
+    _equal(freq, jax_format.dim_frequency(ref))
+    _equal(max_weight_per_dim(port), jax_format.max_weight_per_dim(ref))
+    perm, inv = frequency_permutation(freq)
+    jperm, jinv = jax_format.frequency_permutation(jax_format.dim_frequency(ref))
+    _equal(perm, jperm)
+    _equal(inv, np.asarray(jinv).astype(np.int64))
+    got = reorder_dims(port, perm)
+    want = jax_format.reorder_dims(ref, jperm)
+    _equal(got.indices, want.indices)
+    assert got.values is port.values and got.dim == port.dim
 
 
 def test_port_imports_neither_jax_nor_repro():

@@ -1,0 +1,41 @@
+"""The port stands alone: no module of src/repro_torch, and not
+chip_smoke.py, imports jax or the JAX package ``repro`` (``repro_torch``
+is the port's own).  Every import statement is found by walking the
+syntax tree, so imports inside functions count too."""
+import ast
+import pathlib
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported(tree: ast.AST):
+    """Every top-level package name an import statement in ``tree`` names."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                yield node.module.split(".")[0]
+
+
+def test_the_walk_sees_every_import_form():
+    tree = ast.parse("import jax.numpy as jnp\nfrom repro.core import engine\n"
+                     "def f():\n    import repro\n    from repro_torch.core import index\n"
+                     "from . import sibling\n")
+    assert list(_imported(tree)) == ["jax", "repro", "repro", "repro_torch"]
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_module_imports_neither_jax_nor_repro(path):
+    names = set(_imported(ast.parse(path.read_text(), filename=str(path))))
+    assert not names & set(FORBIDDEN), f"{path.relative_to(ROOT)} imports {names & set(FORBIDDEN)}"
+
+
+def test_the_guard_covers_the_port():
+    assert len(FILES) > 30
+    assert ROOT / "src" / "repro_torch" / "core" / "engine.py" in FILES
