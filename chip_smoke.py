@@ -90,7 +90,31 @@ and, through the entry points a user calls:
            three drivers cached on spectra at the yeast-worm config's
            widths (dim 20,000, 80 peaks a row; n_r 2,048, n_s 20,480)
            against scipy; and topk_merge on one IIIB block step's
-           (2048, 2048) offers, bit for bit its plain version, timed.
+           (2048, 2048) offers, bit for bit its plain version, timed;
+  phase 10 the datastore's lifecycle and the approx tier, for each path
+           (bf, iib, iib with the fused kernel, iiib): built on S's first
+           8,000 rows and extended to 10,000 (index builds for the 2 tail
+           blocks only; bit for bit phase 9's or phase 2's 10,000-row
+           result), 500 seeded deletes (no index build, no deleted id,
+           the survivors' build's answer with ids mapped), 256 rows with a
+           TTL extended and expired, compact (bit for bit the survivors'
+           build), refreeze (IIIB: its kept share before and after, bit for
+           bit a build with the survivors' own rank), each step timed with
+           the median of 3 queries, launches counted, and the same
+           sequence streaming; knn_topk against its plain version at the
+           engine's shapes with the stack's columns masked three ways
+           (tombstone holes, whole dead 256-column tiles, every column
+           dead); a k = 150 query on the datastore with deletes (knn_score
+           and topk_merge launched, its first 5 columns the k = 5 answer);
+           then on the planted workload at synthetic-10k widths (1,250
+           clusters x 8 rows, R blocks of 16 probes; the default plan's
+           recall first, for BF), each path's approx query (target recall
+           0.95 for cosine >= 0.75: 40 bands x 10 rows): recall against
+           the exact face, candidate fraction below 1, the exact face bit
+           for bit an exact build's, streaming bit for bit, 16 rows against
+           the CPU path, no deleted row, with the key hashing, band lookup,
+           approx and exact query times; and topk_merge on an approx block
+           step's offers.
 
 Every flash_attn and wkv comparison goes through repro_torch.testing
 (flash_close, wkv_close: one tolerance table with the card tests) and
@@ -1021,7 +1045,7 @@ def phase9_cached(dev, R, S, rows, o_s, o_i, fused, reset_counts):
 def phase9_drivers(dev, name, R, S, rows, o_s, o_i, fused, reset_counts):
     """Phase 9 (see the module docstring).  Returns (topk_merge launches on
     the counted runs, the drivers' merge case: max |Δ|, ms, plain ms,
-    bound ms and what bounds it)."""
+    bound ms and what bounds it, {algorithm: its cached query of R})."""
     from repro_torch.core import iiib as iiib_mod
     from repro_torch.core.blocknl import knn_join
     from repro_torch.core.engine import JoinSpec, JoinStats, SparseKNNIndex
@@ -1126,7 +1150,470 @@ def phase9_drivers(dev, name, R, S, rows, o_s, o_i, fused, reset_counts):
           f"M={m_args[2].shape[1]} k={K}, {offered:.4f} of the offers finite, bit-identical to "
           f"the plain version; in turns (plain, kernel, kernel, plain) "
           f"{'; '.join(f'{x:.4f}' for x in turns)} ms, bound {m_bound:.4f} ms ({m_by})")
-    return launches, (err, turns[1], turns[0], m_bound, m_by)
+    return launches, (err, turns[1], turns[0], m_bound, m_by), {
+        alg: res for alg, (_, res) in cached.items()}
+
+
+# phase 10: the datastore's lifecycle and the approx tier at synthetic-10k
+# widths (src/repro/configs/paper_knn.py:21), through the entry points a
+# user calls.  Lifecycle: built on S's first 8,000 rows, extended to all
+# 10,000, then 500 seeded deletes, 256 rows with a TTL expired, compact and
+# (IIIB) refreeze.  Approx: the planted workload of the recall contract
+# (benchmarks/common.py gen_clustered) at synthetic-10k's widths, 1,250
+# clusters x 8 rows; R blocks of 16 probes, so the candidate mask (a union
+# over an R block's rows) filters (the reference's tests use 4).
+PATHS = (("bf", False), ("iib", False), ("iib", True), ("iiib", False))
+N_BUILT, N_DELETED, N_TTL = 8000, 500, 256
+APPROX = (1250, 8, 0)          # clusters, rows a cluster, seed
+APPROX_R_BLOCK = 16
+# the bands are planned for the similarity of the neighbours to recall: at
+# 120 features a row the planted neighbours' cosine is 0.69-0.91 (5th
+# percentile 0.76), below the planner's default threshold of 0.9, with
+# which the tier recalls 0.67 of them (printed as well, for BF)
+APPROX_SIM = 0.75
+APPROX_HEAD = 64               # R rows of the card's streaming check
+APPROX_CPU_ROWS = 16           # R rows (one block) held against the CPU path
+
+
+def path_name(alg, kernel):
+    return "iib+kernel" if kernel else alg
+
+
+def rows_of(batch, rows):
+    """The batch's rows ``rows`` (host index array) as a new batch."""
+    from repro_torch.sparse.format import from_arrays
+
+    return from_arrays(batch.indices.numpy()[rows], batch.values.numpy()[rows],
+                       batch.nnz.numpy()[rows], batch.dim)
+
+
+def timed(fn):
+    """(result, seconds) of ``fn()`` ending in torch.cuda.synchronize()."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def launches_of(counter, fn, reset_counts):
+    """(result, seconds, launches of ``counter``): the counts set to 0 just
+    before ``fn`` and read just after."""
+    reset_counts()
+    out, secs = timed(fn)
+    return out, secs, counter.launches
+
+
+def phase10_lifecycle_path(R, S, alg, kernel, fresh_full, dead, reset_counts):
+    """One path's lifecycle at synthetic-10k, cached, then the same sequence
+    streaming on the first R block.  Returns (the main path's launches of
+    its kernel, the printed timings, the compacted index for the kernel
+    checks)."""
+    from repro_torch.core import iiib as iiib_mod
+    from repro_torch.core.engine import JoinSpec, JoinStats, SparseKNNIndex
+    from repro_torch.kernels.knn_topk.kernel import knn_topk_fused
+    from repro_torch.kernels.topk_merge.kernel import topk_merge_cuda
+    from repro_torch.sparse.datagen import synthetic_sparse
+    from repro_torch.testing import assert_topk_close
+
+    name = path_name(alg, kernel)
+    counter = knn_topk_fused if kernel else topk_merge_cuda
+    spec = JoinSpec(k=K, algorithm=alg, r_block=BLOCK, s_block=BLOCK, tile=TILE,
+                    use_kernel=kernel)
+    # IIIB keeps the rank it was built with: give the 8,000-row build the
+    # full S's (as a sharded store passes the global one), so the extended
+    # index is the 10,000-row build bit for bit
+    rank = None
+    if alg == "iiib":
+        idx = S.indices.numpy()
+        rank = iiib_mod.s_frequency_rank(np.bincount(idx[idx < DIM], minlength=DIM))
+    keep = np.setdiff1d(np.arange(N_S), dead)
+    n_r, r_blocks = R.num_vectors, -(-R.num_vectors // BLOCK)
+    launches, times = 0, {}
+
+    def queries(index, label, want_blocks):
+        """Three queries of all of R, each counted; their median time.
+        Returns the last result (its stats are the last query's)."""
+        nonlocal launches
+        secs, last = [], None
+        for _ in range(QUERIES):
+            res, t, n = launches_of(counter, lambda: index.query(R, stats=JoinStats()),
+                                    reset_counts)
+            per_query = r_blocks * (1 if kernel else want_blocks)
+            assert n == per_query, (name, label, n, per_query)
+            launches += n
+            if last is not None:
+                assert torch.equal(res.scores, last.scores) and torch.equal(res.ids, last.ids)
+            last = res
+            secs.append(t)
+        times[label + " query"] = float(np.median(secs))
+        return last
+
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    index, times["build"] = timed(lambda: SparseKNNIndex.build(S.rows(0, N_BUILT), spec,
+                                                                     frozen_rank=rank))
+    builds = index.stats.index_builds
+    held_built = torch.cuda.memory_allocated() - mem0
+    torch.cuda.reset_peak_memory_stats()
+    _, times["extend"] = timed(lambda: index.extend(S.rows(N_BUILT, N_S)))
+    extend_peak = torch.cuda.max_memory_allocated() - mem0
+    tail = -(-N_S // BLOCK) - N_BUILT // BLOCK
+    assert index.stats.index_builds - builds == (0 if alg == "bf" or kernel else tail), (
+        name, builds, index.stats.index_builds)
+    grown = queries(index, "extend", -(-N_S // BLOCK))
+    assert torch.equal(grown.scores, fresh_full.scores), name
+    assert torch.equal(grown.ids, fresh_full.ids), name
+
+    builds = index.stats.index_builds
+    n_dead, times["delete"] = timed(lambda: index.delete(dead))
+    assert n_dead == N_DELETED and index.stats.index_builds == builds
+    deleted = queries(index, "delete", -(-N_S // BLOCK))
+    assert not np.isin(deleted.ids.cpu().numpy(), dead).any(), name
+    survivors, times["full build"] = timed(lambda: SparseKNNIndex.build(
+        rows_of(S, keep), spec, frozen_rank=rank))
+    fresh = survivors.query(R)
+    ok = fresh.scores.cpu().numpy() > -np.inf
+    assert_topk_close(deleted.scores.cpu().numpy(), np.where(ok, deleted.ids.cpu().numpy(), -1),
+                      fresh.scores.cpu().numpy(), np.where(ok, keep[fresh.ids.cpu().numpy()], -1),
+                      RTOL, ATOL)
+    del survivors
+
+    ttl = synthetic_sparse(N_TTL, dim=DIM, nnz_mean=NNZ_MEAN, seed=3)
+    _, times["extend 256 ttl"] = timed(lambda: index.extend(ttl, deadline=50.0))
+    expired, times["expire"] = timed(lambda: index.expire(now=50.0))
+    assert expired == N_TTL, expired
+    n_blocks = index.num_blocks
+    after_ttl = queries(index, "expire", n_blocks)
+    assert_topk_close(after_ttl.scores.cpu().numpy(), after_ttl.ids.cpu().numpy(),
+                      deleted.scores.cpu().numpy(), deleted.ids.cpu().numpy(), RTOL, ATOL)
+
+    removed, times["compact"] = timed(index.compact)
+    assert removed == N_DELETED + N_TTL and index.num_vectors == N_S - N_DELETED
+    compacted = queries(index, "compact", index.num_blocks)
+    assert torch.equal(compacted.scores, fresh.scores), name
+    assert torch.equal(compacted.ids, fresh.ids), name
+    line = (f"phase 10 lifecycle {name} cached: build of {N_BUILT} rows {times['build']:.3f} s, "
+            f"extend by {N_S - N_BUILT} {times['extend']:.3f} s (full build of "
+            f"{N_S - N_DELETED} {times['full build']:.3f} s), delete {N_DELETED} "
+            f"{times['delete'] * 1e3:.3f} ms, extend {N_TTL} with a TTL "
+            f"{times['extend 256 ttl']:.3f} s, expire {times['expire'] * 1e3:.3f} ms, compact "
+            f"{times['compact']:.3f} s; median query after extend {times['extend query']:.4f} s, "
+            f"delete {times['delete query']:.4f}, expire {times['expire query']:.4f}, compact "
+            f"{times['compact query']:.4f}")
+    if alg == "iiib":
+        share_before = kept_share(index, compacted.stats, r_blocks)
+        _, times["refreeze"] = timed(index.refreeze)
+        refrozen = queries(index, "refreeze", index.num_blocks)
+        assert_topk_close(refrozen.scores.cpu().numpy(), refrozen.ids.cpu().numpy(),
+                          compacted.scores.cpu().numpy(), compacted.ids.cpu().numpy(), RTOL, ATOL)
+        own_rank = SparseKNNIndex.build(rows_of(S, keep), spec).query(R)
+        assert torch.equal(refrozen.scores, own_rank.scores), name
+        assert torch.equal(refrozen.ids, own_rank.ids), name
+        line += (f", refreeze {times['refreeze']:.3f} s (kept share {share_before:.4f} before, "
+                 f"{kept_share(index, refrozen.stats, r_blocks):.4f} after), median query "
+                 f"after refreeze {times['refreeze query']:.4f} s")
+    torch.cuda.synchronize()
+    line += (f"; the index holds {held_built / 2**20:.1f} MiB built, "
+             f"{(torch.cuda.memory_allocated() - mem0) / 2**20:.1f} MiB at the end, peak during "
+             f"extend {extend_peak / 2**20:.1f} MiB; bit for bit "
+             f"the {N_S}-row build after extend and the survivors' build after compact")
+    print(line)
+
+    # the same sequence streaming, on the first R block
+    head = R.rows(0, BLOCK)
+    stream = SparseKNNIndex.build(S.rows(0, N_BUILT), spec, cache_device_blocks=False,
+                                  frozen_rank=rank)
+    stream.extend(S.rows(N_BUILT, N_S))
+    stream.delete(dead)
+    stream.extend(ttl, deadline=50.0)
+    assert stream.expire(now=50.0) == N_TTL
+    stream.compact()
+    out, secs, n = launches_of(counter, lambda: stream.query(head), reset_counts)
+    assert n == stream.num_blocks, (name, n)
+    launches += n
+    # the per-pair index has its block's own list width, the cached stack
+    # the common one: cuBLAS may pick another product kernel for it
+    err = assert_topk_close(out.scores.cpu(), out.ids.cpu(), compacted.scores[:BLOCK].cpu(),
+                            compacted.ids[:BLOCK].cpu(), RTOL, ATOL)
+    same = torch.equal(out.scores, compacted.scores[:BLOCK]) and torch.equal(
+        out.ids, compacted.ids[:BLOCK])
+    print(f"phase 10 lifecycle {name} streaming: the same sequence, then a query of {BLOCK} "
+          f"rows in {secs:.4f} s ({n} launches); vs the cached rows max|dscore|={err:.3e}, "
+          f"bit-identical {same}")
+    return launches, index
+
+
+def phase10_masked_kernels(dev, index, R, reset_counts):
+    """The join kernels at the lifecycle's shapes, on the compacted fused
+    index: knn_topk against its plain version with the stack's columns
+    masked three ways (the tombstone holes of a fresh delete, whole dead
+    256-column tiles, every column dead); then a k = 150 query on the same
+    datastore with the deletes (the score kernel, the mask and the merge
+    kernel) against its k = 5 answer, and the score kernel against its
+    plain version on its inputs.  Returns (launches of knn_score and
+    topk_merge on the k 150 main-path query, max |Δ| of knn_topk, of
+    knn_score)."""
+    from repro_torch.core.engine import JoinSpec, SparseKNNIndex
+    from repro_torch.kernels.knn_score.kernel import knn_score_cuda
+    from repro_torch.kernels.knn_score.ref import knn_score_plain
+    from repro_torch.kernels.knn_topk.kernel import knn_topk_fused
+    from repro_torch.kernels.knn_topk.ref import knn_topk_plain
+    from repro_torch.kernels.topk_merge.kernel import topk_merge_cuda
+    from repro_torch.testing import assert_topk_close
+
+    index.delete(np.random.default_rng(11).choice(index.num_vectors, N_DELETED, replace=False))
+    br = R.rows(0, BLOCK).to(dev)
+    args, kwargs, _ = index.kernel_inputs(br, R.indices[:BLOCK].numpy(), BLOCK)
+    holes = args[3]
+    tiles_dead = holes.clone()
+    for lo in range(256, holes.shape[1] - 256, 1024):
+        tiles_dead[0, lo:lo + 512] = 0
+    topk_err = 0.0
+    for label, valid in (("tombstone holes", holes), ("dead 256-column tiles", tiles_dead),
+                         ("all columns dead", torch.zeros_like(holes))):
+        a = args[:3] + (valid,) + args[4:]
+        got, want = knn_topk_fused(*a, **kwargs), knn_topk_plain(*a, **kwargs)
+        torch.cuda.synchronize()
+        err = assert_topk_close(got[0].cpu(), got[1].cpu(), want[0].cpu(), want[1].cpu(),
+                                RTOL, ATOL)
+        np.testing.assert_allclose(got[2].cpu().numpy(), want[2].cpu().numpy(), rtol=RTOL,
+                                   atol=ATOL)
+        dead_ids = a[4][0][(valid[0] == 0) & (a[4][0] >= 0)].cpu().numpy()
+        assert not np.isin(got[1].cpu().numpy(), dead_ids).any(), label
+        if label == "all columns dead":
+            assert torch.equal(got[0], a[5]) and torch.equal(got[1], a[6])
+        topk_err = max(topk_err, err)
+        print(f"phase 10 knn_topk at the engine's shapes, {label} "
+              f"({int((valid[0] == 0).sum())} of {valid.shape[1]} columns masked): "
+              f"max|dscore|={err:.3e} against the plain version")
+
+    # k = 150 on the same datastore: the score and merge kernels' route
+    dead = np.nonzero(~index._alive)[0]
+    S_now = index_batch(index)
+    spec = JoinSpec(k=150, algorithm="iib", r_block=BLOCK, s_block=BLOCK, tile=TILE,
+                    use_kernel=True)
+    big = SparseKNNIndex.build(S_now, spec)
+    big.delete(dead)
+    reset_counts()
+    res, secs = timed(lambda: big.query(R))
+    score_launches, merge_launches = knn_score_cuda.launches, topk_merge_cuda.launches
+    assert knn_topk_fused.launches == 0 and score_launches > 0 and merge_launches > 0
+    small = index.query(R)
+    assert_topk_close(res.scores[:, :K].cpu(), res.ids[:, :K].cpu(), small.scores.cpu(),
+                      small.ids.cpu(), RTOL, ATOL)
+    assert not np.isin(res.ids.cpu().numpy(), dead).any()
+    b_args, b_kwargs, _ = big.kernel_inputs(br, R.indices[:BLOCK].numpy(), BLOCK)
+    width = b_args[1].shape[1] // 2 // b_kwargs["block_s"] * b_kwargs["block_s"]
+    s_args = (b_args[0], b_args[1][:, :width].contiguous(),
+              b_args[2][:, : width // b_kwargs["block_s"]].contiguous())
+    blk = dict(block_r=b_kwargs["block_r"], block_s=b_kwargs["block_s"])
+    sc, sc_plain = knn_score_cuda(*s_args, **blk), knn_score_plain(*s_args, **blk)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(sc, sc_plain, rtol=RTOL, atol=ATOL)
+    score_err = float((sc - sc_plain).abs().max())
+    print(f"phase 10 k=150 on the datastore with {len(dead)} deletes: query of {N_R} rows in "
+          f"{secs:.3f} s, launches knn_score {score_launches} topk_merge {merge_launches} "
+          f"knn_topk 0; its first {K} columns equal the k={K} query; knn_score on its first "
+          f"window of columns max|dscore|={score_err:.3e} against the plain version")
+    return score_launches, merge_launches, topk_err, score_err
+
+
+def index_batch(index):
+    """An index's rows as a batch (its host mirrors)."""
+    from repro_torch.sparse.format import from_arrays
+
+    return from_arrays(index._idx, index._val, index._nnz, index.dim)
+
+
+def phase10_approx(dev, reset_counts):
+    """Each path's approx tier on the planted workload at synthetic-10k
+    widths.  Returns (the main path's launches of knn_topk and of
+    topk_merge, the topk_merge check on a masked block step: max |Δ|)."""
+    from repro_torch.core import lsh
+    from repro_torch.core.engine import JoinSpec, JoinStats, SparseKNNIndex
+    from repro_torch.kernels.knn_topk.kernel import knn_topk_fused
+    from repro_torch.kernels.topk_merge.kernel import topk_merge_cuda
+    from repro_torch.kernels.topk_merge.ref import topk_merge_plain
+    from repro_torch.core import iib as iib_mod
+    from repro_torch.sparse.datagen import gen_clustered
+    from repro_torch.testing import assert_topk_close
+
+    n_clusters, per_cluster, seed = APPROX
+    (aR, aS), gen_s = timed(lambda: gen_clustered(n_clusters, per_cluster, dim=DIM,
+                                                   nnz=NNZ_MEAN, seed=seed))
+    r_val, s_val = aR.values.numpy(), aS.values.numpy()
+    cos = np.concatenate([  # a probe against its cluster's rows (one support)
+        s_val[c * per_cluster:(c + 1) * per_cluster] @ r_val[c]
+        / np.linalg.norm(s_val[c * per_cluster:(c + 1) * per_cluster], axis=1)
+        / np.linalg.norm(r_val[c]) for c in range(n_clusters)])
+    print(f"data: planted workload R {aR.num_vectors} x S {aS.num_vectors} at dim {DIM}, "
+          f"{NNZ_MEAN} features a row, generated in {gen_s:.2f} s; a probe's cosine to its "
+          f"cluster's rows: min {cos.min():.3f}, 5th percentile {np.percentile(cos, 5):.3f}, "
+          f"median {np.median(cos):.3f}")
+    cfg = lsh.plan_lsh(0.95, seed=0, sim_threshold=APPROX_SIM)
+    default_spec = JoinSpec(k=K, algorithm="bf", r_block=APPROX_R_BLOCK, s_block=BLOCK,
+                            tile=TILE, target_recall=0.95)
+    default = SparseKNNIndex.build(aS, default_spec)
+    d_stats = JoinStats()
+    d_res = default.query(aR, stats=d_stats)
+    d_recall = lsh.measured_recall(d_res.ids.cpu().numpy(),
+                                   default.query(aR, accuracy="exact").ids.cpu().numpy())
+    d_cfg = default._lsh.cfg
+    print(f"phase 10 approx bf with the default plan ({d_cfg.n_bands} bands x "
+          f"{d_cfg.rows_per_band} rows, for cosine >= {d_cfg.sim_threshold}): recall "
+          f"{d_recall:.4f}, candidate_fraction {d_stats.candidate_fraction:.5f}; the paths below "
+          f"plan for cosine >= {APPROX_SIM}: {cfg.n_bands} bands x {cfg.rows_per_band} rows")
+    del default
+    n_r = aR.num_vectors
+    r_blocks = -(-n_r // APPROX_R_BLOCK)
+    s_blocks = -(-aS.num_vectors // BLOCK)
+    dead = np.arange(0, aS.num_vectors, 13)
+    topk_launches = merge_launches = 0
+    merge_err = 0.0
+    hashing = [0.0]
+    real_keys = lsh.LSHBands.keys_host
+
+    def timed_keys(self, idx, val):
+        t0 = time.perf_counter()
+        out = real_keys(self, idx, val)
+        hashing[0] += time.perf_counter() - t0
+        return out
+
+    for alg, kernel in PATHS:
+        pname = path_name(alg, kernel)
+        spec = JoinSpec(k=K, algorithm=alg, r_block=APPROX_R_BLOCK, s_block=BLOCK, tile=TILE,
+                        use_kernel=kernel, target_recall=0.95)
+        hashing[0] = 0.0
+        lsh.LSHBands.keys_host = timed_keys
+        try:
+            index, build_s = timed(lambda: SparseKNNIndex.build(aS, spec, lsh_cfg=cfg))
+        finally:
+            lsh.LSHBands.keys_host = real_keys
+        counter = knn_topk_fused if kernel else topk_merge_cuda
+        stats = JoinStats()
+        res, approx_s, n = launches_of(counter, lambda: index.query(aR, stats=stats),
+                                       reset_counts)
+        assert n == r_blocks * (1 if kernel else s_blocks), (pname, n)
+        if kernel:
+            topk_launches += n
+        else:
+            merge_launches += n
+        exact, exact_s = timed(lambda: index.query(aR, accuracy="exact"))
+        recall = lsh.measured_recall(res.ids.cpu().numpy(), exact.ids.cpu().numpy())
+        stats.recall = recall
+        assert recall >= 0.95, (pname, recall)
+        assert 0 < stats.candidate_rows and stats.candidate_fraction < 1.0, (pname, stats)
+
+        # the band lookup of one R block (CUDA events)
+        rk, rr = index._r_band_keys(aR.indices.numpy(), aR.values.numpy(), aR.nnz.numpy(), 0,
+                                    APPROX_R_BLOCK, np.ones(APPROX_R_BLOCK, bool))
+        rk, rr = torch.as_tensor(rk, device=dev), torch.as_tensor(rr, device=dev)
+        if kernel:
+            ks = index._kernel_stack
+            s_keys, live = ks.col_keys[0], ks.col_valid[0] != 0
+        else:
+            s_keys = index._lsh_stack
+            live = torch.as_tensor(index._sampled_valid(None), device=dev)
+        lookup_ms = cuda_ms(lambda: lsh.candidate_mask(rk, rr, s_keys, live), reps=20)
+
+        # the exact face: bit for bit an exact-built index's (first 256 rows)
+        head = aR.rows(0, 256)
+        exact_spec = JoinSpec(k=K, algorithm=alg, r_block=APPROX_R_BLOCK, s_block=BLOCK,
+                              tile=TILE, use_kernel=kernel)
+        plain_exact = SparseKNNIndex.build(aS, exact_spec).query(head)
+        assert torch.equal(plain_exact.scores, exact.scores[:256]), pname
+        assert torch.equal(plain_exact.ids, exact.ids[:256]), pname
+
+        # streaming on the card, bit for bit the cached rows; the CPU path
+        probe = aR.rows(0, APPROX_HEAD)
+        streamed = SparseKNNIndex.build(aS, spec, cache_device_blocks=False,
+                                        lsh_cfg=cfg).query(probe)
+        stream_err = assert_topk_close(streamed.scores.cpu(), streamed.ids.cpu(),
+                                       res.scores[:APPROX_HEAD].cpu(),
+                                       res.ids[:APPROX_HEAD].cpu(), RTOL, ATOL)
+        stream_same = torch.equal(streamed.scores, res.scores[:APPROX_HEAD]) and torch.equal(
+            streamed.ids, res.ids[:APPROX_HEAD])
+        cpu_stats = JoinStats()
+        cpu = SparseKNNIndex.build(aS, spec, cache_device_blocks=False, device="cpu",
+                                   lsh_cfg=cfg).query(aR.rows(0, APPROX_CPU_ROWS),
+                                                      stats=cpu_stats)
+        cpu_err = assert_topk_close(res.scores[:APPROX_CPU_ROWS].cpu(),
+                                    res.ids[:APPROX_CPU_ROWS].cpu(), cpu.scores, cpu.ids,
+                                    RTOL, ATOL)
+        one = JoinStats()
+        index.query(aR.rows(0, APPROX_CPU_ROWS), stats=one)
+        assert one.candidate_rows == cpu_stats.candidate_rows, (pname, one, cpu_stats)
+
+        # tombstones AND into the candidate mask
+        index.delete(dead)
+        after = index.query(aR.rows(0, 256))
+        assert not np.isin(after.ids.cpu().numpy(), dead).any(), pname
+        print(f"phase 10 approx {pname}: build "
+              f"{build_s:.3f} s of which key hashing (host) {hashing[0]:.3f} s; band lookup "
+              f"{lookup_ms:.4f} ms an R block of {APPROX_R_BLOCK}; approx query {approx_s:.3f} s "
+              f"({n} launches), exact query {exact_s:.3f} s; recall {recall:.4f}, "
+              f"candidate_fraction {stats.candidate_fraction:.5f} ({stats.candidate_rows} of "
+              f"{stats.scanned_rows}); exact face bit for bit an exact build's; streaming "
+              f"{APPROX_HEAD} rows max|dscore|={stream_err:.3e} (bit-identical {stream_same}); "
+              f"{APPROX_CPU_ROWS} rows vs the CPU path max|dscore|={cpu_err:.3e}; no "
+              f"deleted row after {len(dead)} deletes")
+
+        if alg == "iib" and not kernel:
+            # topk_merge on a masked block step's offers (tombstoned and
+            # non-candidate columns at -inf), against its plain version
+            captured = []
+            real_step = iib_mod.merge_step
+
+            def capture(state, scores, ids):
+                captured.append((state.scores.clone(), state.ids.clone(), scores.clone(),
+                                 ids.clone()))
+                return real_step(state, scores, ids)
+
+            iib_mod.merge_step = capture
+            try:
+                index.query(aR.rows(0, APPROX_R_BLOCK))
+            finally:
+                iib_mod.merge_step = real_step
+            # the step with the most offers (the others are mostly -inf)
+            m_args = max(captured, key=lambda a: int(torch.isfinite(a[2]).sum()))
+            got, want = topk_merge_cuda(*m_args), topk_merge_plain(*m_args)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            merge_err = max_abs_err(got[0], want[0])
+            print(f"phase 10 topk_merge on an approx block step's offers (N={m_args[2].shape[0]}"
+                  f" M={m_args[2].shape[1]}, {float(torch.isfinite(m_args[2]).double().mean()):.5f}"
+                  f" finite): bit-identical to the plain version")
+        del index
+    return topk_launches, merge_launches, merge_err
+
+
+def phase10(dev, R, S, fresh, reset_counts):
+    """Phase 10 (see the module docstring).  ``fresh``: {path name: the
+    10,000-row cached query of phases 2 and 9}.  Returns the main path's
+    launches {kernel: n} and the kernels' max |Δ| {kernel: x}."""
+    t0 = time.perf_counter()
+    dead = np.sort(np.random.default_rng(10).choice(N_S, N_DELETED, replace=False))
+    launches = {"knn_topk": 0, "knn_score": 0, "topk_merge": 0}
+    errs = {}
+    fused_index = None
+    for alg, kernel in PATHS:
+        n, index = phase10_lifecycle_path(R, S, alg, kernel,
+                                          fresh[path_name(alg, kernel)], dead, reset_counts)
+        launches["knn_topk" if kernel else "topk_merge"] += n
+        if kernel:
+            fused_index = index
+        del index
+    s_n, m_n, errs["knn_topk"], errs["knn_score"] = phase10_masked_kernels(
+        dev, fused_index, R, reset_counts)
+    launches["knn_score"] += s_n
+    launches["topk_merge"] += m_n
+    del fused_index
+    t_n, m_n, errs["topk_merge"] = phase10_approx(dev, reset_counts)
+    launches["knn_topk"] += t_n
+    launches["topk_merge"] += m_n
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s, main-path launches {launches}")
+    return launches, errs
 
 
 def main():
@@ -1462,10 +1949,15 @@ def main():
 
     # phase 9: the paper's three drivers (counts from 0 around each main-path run)
     t0 = time.perf_counter()
-    driver_merges, driver_merge_case = phase9_drivers(dev, name, R, S, rows, o_s, o_i, q2,
-                                                      reset_counts)
+    driver_merges, driver_merge_case, driver_results = phase9_drivers(
+        dev, name, R, S, rows, o_s, o_i, q2, reset_counts)
     print(f"phase 9: {time.perf_counter() - t0:.1f} s, topk_merge launches on its main-path "
           f"runs {driver_merges}")
+
+    # phase 10: the datastore's lifecycle and the approx tier (counts from 0
+    # around each main-path run)
+    life_launches, life_errs = phase10(dev, R, S, dict(driver_results, **{"iib+kernel": q2}),
+                                       reset_counts)
 
     print(json.dumps({"kernels": [
         {
@@ -1473,8 +1965,9 @@ def main():
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/knn_topk.cu",
             "replaces": "src/repro/kernels/knn_topk/kernel.py:63",
-            "launches": cached_launches + stream_launches + split_counts[0],
-            "max_abs_err": max(edge_err, engine_err, route_err),
+            "launches": cached_launches + stream_launches + split_counts[0]
+            + life_launches["knn_topk"],
+            "max_abs_err": max(edge_err, engine_err, route_err, life_errs["knn_topk"]),
             "ms": kernel_ms,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
@@ -1486,8 +1979,8 @@ def main():
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/knn_score.cu",
             "replaces": "src/repro/kernels/knn_score/kernel.py:37",
-            "launches": unfused_counts[0],
-            "max_abs_err": score_err,
+            "launches": unfused_counts[0] + life_launches["knn_score"],
+            "max_abs_err": max(score_err, life_errs["knn_score"]),
             "ms": score_ms,
             "plain_ms": score_plain_ms,
             "bound_ms": score_bound_ms,
@@ -1499,8 +1992,9 @@ def main():
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/topk_merge.cu",
             "replaces": "src/repro/kernels/topk_merge/kernel.py:52",
-            "launches": unfused_counts[1] + split_counts[1] + driver_merges,
-            "max_abs_err": max(merge_err, driver_merge_case[0]),
+            "launches": unfused_counts[1] + split_counts[1] + driver_merges
+            + life_launches["topk_merge"],
+            "max_abs_err": max(merge_err, driver_merge_case[0], life_errs["topk_merge"]),
             "ms": merge_ms,
             "plain_ms": merge_plain_ms,
             "bound_ms": merge_bound_ms,

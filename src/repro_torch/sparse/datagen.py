@@ -8,12 +8,14 @@ to the JAX package's.
 * :func:`spectra_like` — MS/MS-spectrum-like vectors after the Yeast /
   Worm datasets (§5.2): m/z binned at 0.1 Da (dim = m/z * 10), clustered
   peak positions and exponentially distributed intensities.
+* :func:`gen_clustered` — the planted-neighbour workload of the approx
+  tier's recall contract (a copy of ``benchmarks/common.py``'s).
 """
 from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.sparse.format import SparseBatch
+from repro_torch.sparse.format import SparseBatch, from_arrays
 
 
 def synthetic_sparse(
@@ -80,3 +82,37 @@ def spectra_like(
         dim=dim,
         max_features=f,
     )
+
+
+def gen_clustered(n_clusters: int, per_cluster: int, dim: int, nnz: int, seed: int,
+                  noise: float = 0.05):
+    """Planted-neighbour workload for recall measurement: (R, S) where S
+    holds ``per_cluster`` noisy copies of each cluster centre and R one
+    noisy probe per cluster, all on the centre's support (cosine ~0.95+
+    within a cluster, near-orthogonal across).  Uniform random sparse data
+    has no high-similarity neighbours, so a recall contract is only
+    meaningful on planted structure with ``per_cluster >= k``."""
+    rng = np.random.default_rng(seed)
+    cidx = np.stack([
+        np.sort(rng.choice(dim, size=nnz, replace=False))
+        for _ in range(n_clusters)
+    ]).astype(np.int32)
+    cval = rng.random((n_clusters, nnz)).astype(np.float32) + 0.5
+    cval /= np.linalg.norm(cval, axis=1, keepdims=True)
+
+    def noisy(c):
+        v = cval[c] + noise * rng.standard_normal(nnz).astype(np.float32)
+        return np.abs(v).astype(np.float32)
+
+    def batch(idx_rows, val_rows):
+        return from_arrays(np.stack(idx_rows), np.stack(val_rows),
+                           np.full(len(idx_rows), nnz, np.int32), dim)
+
+    s_idx, s_val, r_idx, r_val = [], [], [], []
+    for c in range(n_clusters):
+        for _ in range(per_cluster):
+            s_idx.append(cidx[c])
+            s_val.append(noisy(c))
+        r_idx.append(cidx[c])
+        r_val.append(noisy(c))
+    return batch(r_idx, r_val), batch(s_idx, s_val)

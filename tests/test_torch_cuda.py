@@ -6,7 +6,9 @@ merge_topk_states, the public ops, the wrappers' input checks, the
 fused-kernel join path in both modes, with the k > 128 route and a tile
 that is not a multiple of 4, and the paper's three drivers (BF, IIB
 without the kernel, IIIB) in both modes, each block step merging through
-topk_merge_cuda.
+topk_merge_cuda, and the datastore's lifecycle (extend, delete,
+expire, compact, refreeze) and the approx tier on every path, with the
+join kernels held to their plain versions on masked columns.
 Every test here needs a CUDA device and skips without one.  The file imports neither jax
 nor repro, so it runs on a machine with the card alone:
 
@@ -742,3 +744,211 @@ def test_wkv_wrapper_rejects_bad_inputs(cuda):
         wkv_cuda(r, k, v, lw, u, chunk=48)
     with pytest.raises(ValueError, match="chunk"):
         wkv_cuda(r, k, v, lw, u, chunk=4)
+
+
+# ---------------------------------------------------------------------------
+# the datastore's lifecycle and the approx tier on the card: the join
+# kernels on masked columns, and every path against the CPU path
+# ---------------------------------------------------------------------------
+
+def _holes(valid, kind):
+    """``valid`` (1, NS) int32 with columns masked out: scattered holes in
+    the middle of S, whole 256-column tiles dead, or every column dead."""
+    v = valid.clone()
+    n = v.shape[1]
+    if kind == "holes":
+        rng = np.random.default_rng(n)
+        cols = rng.choice(np.arange(n // 8, n - n // 8), size=n // 3, replace=False)
+        v[0, torch.as_tensor(cols, device=v.device)] = 0
+    elif kind == "dead-tiles":
+        for lo in range(256, n - 256, 512):
+            v[0, lo:lo + 256] = 0
+    else:
+        v.zero_()
+    return v
+
+
+@pytest.mark.parametrize("kind", ["holes", "dead-tiles", "all-dead"])
+@pytest.mark.parametrize("k,variant", [(16, None), (5, "warm"), (128, None)])
+def test_kernel_with_masked_columns_matches_plain(cuda, kind, k, variant):
+    """knn_topk_fused with col_valid holes inside S (tombstones, the band
+    filter's candidate mask), whole dead 256-column tiles and an all-dead
+    S against its plain version: no masked column is returned, and a
+    walk that offers nothing keeps its init state and seed threshold."""
+    args, kwargs = _inputs(cuda, 300, 1100, 1024, 256, 256, k, False, variant)
+    args = args[:3] + (_holes(args[3], kind),) + args[4:]
+    before = knn_topk_fused.launches
+    got = knn_topk_fused(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert knn_topk_fused.launches == before + 1
+    want = knn_topk_plain(*args, **kwargs)
+    assert_topk_close(got[0].cpu().numpy(), got[1].cpu().numpy(), want[0].cpu().numpy(),
+                      want[1].cpu().numpy(), RTOL, ATOL)
+    np.testing.assert_allclose(got[2].cpu().numpy(), want[2].cpu().numpy(), rtol=RTOL, atol=ATOL)
+    # the warm state's ids are another S's (ns..2ns-1): every S id returned is live
+    dead_ids = args[4][0][(args[3][0] == 0) & (args[4][0] >= 0)].cpu().numpy()
+    assert not np.isin(got[1].cpu().numpy(), dead_ids).any()
+    if kind == "all-dead":
+        assert torch.equal(got[0], args[5]) and torch.equal(got[1], args[6])
+        assert (got[2] == kwargs["thr"]).all()
+
+
+@pytest.mark.parametrize("kind", ["holes", "dead-tiles", "all-dead"])
+def test_score_then_merge_k150_on_masked_stack(cuda, kind):
+    """The k > 128 route (knn_score_cuda, the mask, topk_merge_cuda) on a
+    stack with masked columns: the plain fused walk's answer at k 150."""
+    args, kwargs = _inputs(cuda, 300, 700, 2000, 128, 64, 150, False)
+    args = args[:3] + (_holes(args[3], kind),) + args[4:]
+    before = (knn_score_cuda.launches, topk_merge_cuda.launches)
+    got = score_then_merge(*args, block_r=128, block_s=64)
+    torch.cuda.synchronize()
+    assert knn_score_cuda.launches > before[0] and topk_merge_cuda.launches > before[1]
+    want = knn_topk_plain(*args, **kwargs)
+    assert_topk_close(got[0].cpu().numpy(), got[1].cpu().numpy(), want[0].cpu().numpy(),
+                      want[1].cpu().numpy(), RTOL, ATOL)
+    if kind == "all-dead":
+        assert (got[1] == -1).all()
+
+
+@pytest.mark.parametrize("blocks,s_block,rb", [(5, 2048, 16), (1, 10_240, 2048), (3, 17, 1)])
+def test_candidate_mask_on_card_equals_cpu(cuda, blocks, s_block, rb):
+    """The torch band lookup on the card equals the CPU's and the host
+    twin's, with padded and empty R rows excluded."""
+    from repro_torch.core import lsh
+
+    rng = np.random.default_rng(rb)
+    n_bands = 30
+    rk = rng.integers(0, 1 << 30, size=(rb, n_bands), dtype=np.int32)
+    sk = rng.integers(0, 1 << 30, size=(blocks, s_block, n_bands), dtype=np.int32)
+    flat = sk.reshape(-1, n_bands)                 # a view: plant collisions in band 3
+    flat[::7, 3] = rk[rng.integers(0, rb, size=flat[::7].shape[0]), 3]
+    sk[-1, -1] = rk[0]
+    r_real = np.ones(rb, bool)
+    r_real[max(1, rb // 2):] = False               # padded rows: their keys never hit
+    s_valid = rng.random((blocks, s_block)) > 0.1
+    args = (rk, r_real, sk, s_valid)
+    mask, count = lsh.candidate_mask(*(torch.as_tensor(a, device=cuda) for a in args))
+    cpu_mask, cpu_count = lsh.candidate_mask(*(torch.as_tensor(a) for a in args))
+    assert mask.device.type == "cuda"
+    assert torch.equal(mask.cpu(), cpu_mask) and int(count) == int(cpu_count)
+    np.testing.assert_array_equal(cpu_mask.numpy(), lsh.candidate_mask_host(rk, r_real, sk))
+    assert 0 < int(count) < s_valid.sum()
+
+
+PATHS = [("bf", False), ("iib", False), ("iib", True), ("iiib", False)]
+
+
+def _refuse_plain_merges(monkeypatch):
+    """During a card query: no plain merge, torch.topk, or torch.sort of
+    scores (the band lookup sorts int32 keys, which passes)."""
+    real_sort = torch.sort
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain merge ran on the card")
+
+    def keys_only_sort(x, *args, **kwargs):
+        if x.is_floating_point():
+            raise AssertionError("a float sort (a plain merge) ran on the card")
+        return real_sort(x, *args, **kwargs)
+
+    for where in ("repro_torch.kernels.topk_merge.kernel.topk_merge_plain",
+                  "repro_torch.core.topk.topk_update", "torch.topk"):
+        monkeypatch.setattr(where, refuse)
+    monkeypatch.setattr("torch.sort", keys_only_sort)
+
+
+def _lifecycle(S, extra, spec, cached, device, R, before_query=None, after_query=None):
+    """Build on S's first 500 rows, then extend, delete, extend with a TTL,
+    expire, compact, refreeze, querying R after each step; returns
+    [(step output, result, index_builds, live rows)]."""
+    idx = SparseKNNIndex.build(S.rows(0, 500), spec, cache_device_blocks=cached, device=device)
+    steps = (lambda: idx.extend(S.rows(500, 700)), lambda: idx.delete(np.arange(3, 700, 7)),
+             lambda: idx.extend(extra, deadline=5.0), lambda: idx.expire(5.0),
+             lambda: idx.compact(), lambda: idx.refreeze())
+    out = []
+    for step in steps:
+        got = step()
+        if before_query:
+            before_query()
+        res = idx.query(R)
+        if after_query:
+            after_query()
+        out.append((got if isinstance(got, int) else None, res, idx.stats.index_builds,
+                    idx.live_rows))
+    return out
+
+
+@pytest.mark.parametrize("alg,kernel", PATHS, ids=["bf", "iib", "iib-kernel", "iiib"])
+def test_lifecycle_on_card_matches_cpu(cuda, alg, kernel, monkeypatch):
+    """Each path's extend / delete / TTL expire / compact / refreeze
+    sequence on the card, cached and streaming: every step's result the
+    CPU path's (ids equal outside tie groups), the same counters, index
+    builds and live rows, cached equal to streaming bit for bit; the
+    queries launch the kernels (fused path) or topk_merge (drivers) and no
+    plain merge."""
+    R, S = _driver_data()
+    extra = synthetic_sparse(64, dim=2000, nnz_mean=40, seed=5)
+    spec = JoinSpec(k=5, algorithm=alg, use_kernel=kernel, r_block=128, s_block=256)
+    runs = {}
+    for cached in (True, False):
+        launches = []
+        counter = knn_topk_fused if kernel else topk_merge_cuda
+        runs[cached] = _lifecycle(
+            S, extra, spec, cached, cuda, R,
+            before_query=lambda: (_refuse_plain_merges(monkeypatch),
+                                  launches.append(counter.launches)),
+            after_query=lambda: (monkeypatch.undo(),
+                                 launches.append(counter.launches - launches.pop())))
+        assert all(n > 0 for n in launches), launches
+        cpu = _lifecycle(S, extra, spec, cached, "cpu", R)
+        for (g_out, g_res, g_builds, g_live), (c_out, c_res, c_builds, c_live) in zip(
+                runs[cached], cpu):
+            assert (g_out, g_builds, g_live) == (c_out, c_builds, c_live)
+            assert g_res.scores.device.type == "cuda"
+            assert_topk_close(g_res.scores.cpu().numpy(), g_res.ids.cpu().numpy(),
+                              c_res.scores.numpy(), c_res.ids.numpy(), RTOL, ATOL)
+            assert ({c: getattr(g_res.stats, c) for c in COUNTS}
+                    == {c: getattr(c_res.stats, c) for c in COUNTS})
+    for (_, a, _, _), (_, b, _, _) in zip(runs[True], runs[False]):
+        assert torch.equal(a.scores, b.scores) and torch.equal(a.ids, b.ids)
+    deleted = np.arange(3, 700, 7)
+    assert not np.isin(runs[True][1][1].ids.cpu().numpy(), deleted).any()
+
+
+@pytest.mark.parametrize("alg,kernel", PATHS, ids=["bf", "iib", "iib-kernel", "iiib"])
+def test_approx_on_card_matches_cpu(cuda, alg, kernel, monkeypatch):
+    """Each path's approx query on the card, cached and streaming, on a
+    planted workload: the CPU path's ids and candidate counts, recall >=
+    0.95 against the exact face with a candidate set smaller than S,
+    cached equal to streaming bit for bit, no deleted row after a delete."""
+    from repro_torch.core import lsh
+    from repro_torch.sparse.datagen import gen_clustered
+
+    R, S = gen_clustered(40, 8, dim=2000, nnz=40, seed=1)
+    spec = JoinSpec(k=5, algorithm=alg, use_kernel=kernel, r_block=8, s_block=128,
+                    target_recall=0.95)
+    card = {}
+    for cached in (True, False):
+        idx = SparseKNNIndex.build(S, spec, cache_device_blocks=cached)
+        cpu_idx = SparseKNNIndex.build(S, spec, cache_device_blocks=cached, device="cpu")
+        for step in ("fresh", "deleted"):
+            if step == "deleted":
+                idx.delete(np.arange(0, 320, 9))
+                cpu_idx.delete(np.arange(0, 320, 9))
+            _refuse_plain_merges(monkeypatch)
+            got = idx.query(R)
+            monkeypatch.undo()
+            want = cpu_idx.query(R)
+            assert_topk_close(got.scores.cpu().numpy(), got.ids.cpu().numpy(),
+                              want.scores.numpy(), want.ids.numpy(), RTOL, ATOL)
+            for c in COUNTS + ("candidate_rows", "scanned_rows"):
+                assert getattr(got.stats, c) == getattr(want.stats, c), c
+            exact = idx.query(R, accuracy="exact")
+            assert lsh.measured_recall(got.ids.cpu().numpy(), exact.ids.cpu().numpy()) >= 0.95
+            assert 0 < got.stats.candidate_rows and got.stats.candidate_fraction < 1.0
+            card[cached, step] = got
+        assert not np.isin(card[cached, "deleted"].ids.cpu().numpy(),
+                           np.arange(0, 320, 9)).any()
+    for step in ("fresh", "deleted"):
+        a, b = card[True, step], card[False, step]
+        assert torch.equal(a.scores, b.scores) and torch.equal(a.ids, b.ids)

@@ -1,8 +1,9 @@
 """The port's join engine (src/repro_torch: SparseKNNIndex and knn_join)
 against the JAX engine, the dense oracle and the port's own
 reference_join, on the CPU where the kernels' plain versions run: the
-fused-kernel IIB path (with the k > 128 route, score_then_merge, and
-tiles that are not a multiple of 4) and the paper's three drivers, BF,
+fused-kernel IIB path (with the k > 128 route, score_then_merge, tiles
+that are not a multiple of 4, and once each the approx tier, planner
+calibration and the mutations) and the paper's three drivers, BF,
 IIB without the kernel and IIIB, cached and streaming, with ragged
 blocks, warm start and a frozen superset order.  Scores within
 rtol=1e-5, atol=1e-6, ids equal outside tie groups; the work counters
@@ -19,6 +20,7 @@ from repro.core.engine import SparseKNNIndex as JaxIndex  # noqa: E402
 from repro.core.reference import oracle_knn  # noqa: E402
 from repro.sparse.datagen import spectra_like as jax_spectra  # noqa: E402
 from repro.sparse.datagen import synthetic_sparse as jax_synthetic  # noqa: E402
+from repro.sparse.format import SparseBatch as JaxBatch  # noqa: E402
 from repro.sparse.format import densify  # noqa: E402
 from repro_torch.core.blocknl import knn_join  # noqa: E402
 from repro_torch.core.engine import (  # noqa: E402
@@ -218,10 +220,21 @@ def test_ops_need_cuda_unless_cpu_is_named(rs, monkeypatch, op):
     (dict(algorithm="iib", use_kernel=True, accuracy="approx"), {}),
     (dict(algorithm="iib", use_kernel=True), dict(calibration={"c2_unit_s": 1.0})),
 ])
-def test_options_off_the_slice_raise(rs, kwargs, build_kwargs):
-    _, _, _, pS, _, _ = rs
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
-        SparseKNNIndex.build(pS, JoinSpec(k=5, **kwargs), device="cpu", **build_kwargs)
+def test_approx_and_calibration_match_jax_engine(rs, kwargs, build_kwargs):
+    """The two options that raised before the approx tier and the planner's
+    calibration were ported: each now runs and equals the JAX engine,
+    every counter included (approx: the candidate and scanned rows)."""
+    R, S, pR, pS, _, _ = rs
+    spec = dict(k=5, r_block=24, s_block=32, **kwargs)
+    jstats, stats = JaxStats(), JoinStats()
+    jres = JaxIndex.build(S, JaxSpec(**spec), **build_kwargs).query(R, stats=jstats)
+    res = SparseKNNIndex.build(pS, JoinSpec(**spec), device="cpu", **build_kwargs).query(
+        pR, stats=stats)
+    assert_topk_close(res.scores.numpy(), res.ids.numpy(), np.asarray(jres.scores),
+                      np.asarray(jres.ids), RTOL, ATOL)
+    for c in COUNTERS + ("candidate_rows", "scanned_rows"):
+        assert getattr(stats, c) == getattr(jstats, c), c
+    assert stats.candidate_fraction == jstats.candidate_fraction
 
 
 @pytest.mark.parametrize("kwargs,build_kwargs", [
@@ -250,13 +263,36 @@ def test_options_now_on_the_slice_match_jax_engine(rs, kwargs, build_kwargs):
     ("extend", (None,)), ("delete", ([0],)), ("expire", (0.0,)), ("compact", ()),
     ("refreeze", ()),
 ])
-def test_mutations_raise(rs, method, args):
-    _, _, pR, pS, _, _ = rs
-    index = SparseKNNIndex.build(pS, JoinSpec(k=5, algorithm="iib", use_kernel=True),
-                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
-        getattr(index, method)(*args)
-    with pytest.raises(NotImplementedError):
+def test_mutations_match_jax_engine(rs, method, args):
+    """The five mutations that raised before they were ported: each now runs
+    on the fused-kernel index as on the JAX engine's (``extend``'s batch,
+    None before, is S's last 30 rows on an index over the first 50), and
+    an approx query on this exact-built index raises ValueError, as there."""
+    R, S, pR, pS, _, _ = rs
+    spec = dict(k=5, algorithm="iib", use_kernel=True)
+    j_build, p_build, j_args, p_args = S, pS, args, args
+    if method == "extend":
+        j_build = JaxBatch(indices=S.indices[:50], values=S.values[:50], nnz=S.nnz[:50],
+                           dim=S.dim)
+        p_build = pS.rows(0, 50)
+        j_args = (JaxBatch(indices=S.indices[50:], values=S.values[50:], nnz=S.nnz[50:],
+                           dim=S.dim),)
+        p_args = (pS.rows(50, 80),)
+    jidx = JaxIndex.build(j_build, JaxSpec(**spec))
+    index = SparseKNNIndex.build(p_build, JoinSpec(**spec), device="cpu")
+    j_out, p_out = getattr(jidx, method)(*j_args), getattr(index, method)(*p_args)
+    if isinstance(j_out, int):
+        assert p_out == j_out
+    assert (index.num_vectors, index.live_rows) == (jidx.num_vectors, jidx.live_rows)
+    assert index.stats.index_builds == jidx.stats.index_builds
+    jstats, stats = JaxStats(), JoinStats()
+    jres, res = jidx.query(R, stats=jstats), index.query(pR, stats=stats)
+    assert_topk_close(res.scores.numpy(), res.ids.numpy(), np.asarray(jres.scores),
+                      np.asarray(jres.ids), RTOL, ATOL)
+    assert {c: getattr(stats, c) for c in COUNTERS} == {c: getattr(jstats, c) for c in COUNTERS}
+    with pytest.raises(ValueError):
+        jidx.query(R, accuracy="approx")
+    with pytest.raises(ValueError):
         index.query(pR, accuracy="approx")
 
 
