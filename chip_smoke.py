@@ -50,7 +50,7 @@ and, at the widths of models the repo supports (S = 4096):
            and at 1, 48 and 80, which the wrapper pads, Sq != Skv,
            Sq < 16, Skv not a multiple of 8, ragged 96, GQA g = 1, 2, 8,
            10, windows whose edge falls inside a q tile, rows with no
-           visible key), both tensor-core kernels' instructions
+           visible key, B·H = 65,536 heads), both tensor-core kernels' instructions
            (HMMA/HGMMA in cuobjdump -sass, which must be nonzero) and
            ptxas's registers and spills per head width, then qwen3-0.6b
            (H 16, KVH 8, hd 128, causal, B 2) and recurrentgemma-2b (H 10,
@@ -114,7 +114,26 @@ and, through the entry points a user calls:
            for bit an exact build's, streaming bit for bit, 16 rows against
            the CPU path, no deleted row, with the key hashing, band lookup,
            approx and exact query times; and topk_merge on an approx block
-           step's offers.
+           step's offers;
+  phase 11 the sharded store on one card (ShardedKNNStore, 4 shards): at
+           synthetic-10k for bf, iib and iiib, at s_block 500 bit for bit
+           one index of the same blocks, and at s_block 2,048 built once and
+           queried 3 times (5 dispatches, 5 host syncs and 5 x (4 shards x 2
+           block steps + 3 tree merges) topk_merge launches a query, index
+           builds frozen), with build and query times beside phase 9's one
+           index, held and peak device memory, and the checks against phase
+           9's rows and 256 float64 scipy rows; topk_merge on one tree merge
+           and one shard block step, timed beside its plain version and
+           torch.topk; 2 replicas x 4 shards (iib) through a replica_error
+           mid-query (bit for bit the clean query, one failover), an add and
+           deletes while it is dead, resync_replicas, verify_replicas and
+           the half-open probe; an unreplicated shard_error (raises, then
+           allow_partial); add, delete, TTL expiry, compact and refreeze on
+           an iiib store, each against a fresh store over the live rows;
+           then the yeast-worm config's S (207,804 rows, dim 20,000, 80
+           peaks) in 4 shards for bf, iib and iiib (iiib at the full S when
+           the host holds 3x its stacks), R 4,096 rows, against scipy, with
+           build and query times and held and peak device memory.
 
 Every flash_attn and wkv comparison goes through repro_torch.testing
 (flash_close, wkv_close: one tolerance table with the card tests) and
@@ -533,6 +552,8 @@ def phase7_edge_cases(dev):
         (4, 2, 64, 64, 16, True, 8, bf16),         # bf16 hd 16
         (4, 2, 70, 70, 48, True, 0, bf16),         # bf16 hd 48 -> 64
         (3, 3, 90, 90, 80, False, 0, bf16),        # bf16 hd 80 -> 128
+        # B·H past 65,535: BH is gridDim.x (the query tiles are gridDim.y)
+        (65_536, 65_536, 16, 16, 16, True, 0, f32),
     ]
     worst = {f32: (0.0, 0.0), bf16: (0.0, 0.0)}
     for bh, kvh, sq, skv, hd, causal, window, dtype in cases:
@@ -979,14 +1000,14 @@ def kept_share(index, stats, r_blocks):
 def phase9_cached(dev, R, S, rows, o_s, o_i, fused, reset_counts):
     """Each driver cached: build, then QUERIES queries of all of R, every
     count read from 0 around each query.  Returns ({algorithm: (index,
-    last result)}, topk_merge launches)."""
+    last result)}, topk_merge launches, {algorithm: median query s})."""
     from repro_torch.core.engine import JoinSpec, JoinStats, SparseKNNIndex
     from repro_torch.kernels.topk_merge.kernel import topk_merge_cuda
     from repro_torch.testing import assert_topk_close
 
     n_r = R.num_vectors
     r_blocks, s_blocks = -(-n_r // BLOCK), -(-S.num_vectors // BLOCK)
-    out, launches = {}, 0
+    out, launches, medians = {}, 0, {}
     for alg in DRIVERS:
         spec = JoinSpec(k=K, algorithm=alg, r_block=BLOCK, s_block=BLOCK, tile=TILE)
         torch.cuda.synchronize()
@@ -1039,13 +1060,15 @@ def phase9_cached(dev, R, S, rows, o_s, o_i, fused, reset_counts):
             for i, trace in enumerate(stats.min_prune_trace):
                 print(f"  iiib R block {i} threshold trace {np.round(trace, 6).tolist()}")
         out[alg] = (index, last)
-    return out, launches
+        medians[alg] = float(np.median(times))
+    return out, launches, medians
 
 
 def phase9_drivers(dev, name, R, S, rows, o_s, o_i, fused, reset_counts):
     """Phase 9 (see the module docstring).  Returns (topk_merge launches on
     the counted runs, the drivers' merge case: max |Δ|, ms, plain ms,
-    bound ms and what bounds it, {algorithm: its cached query of R})."""
+    bound ms and what bounds it, {algorithm: its cached query of R},
+    {algorithm: its median cached query s})."""
     from repro_torch.core import iiib as iiib_mod
     from repro_torch.core.blocknl import knn_join
     from repro_torch.core.engine import JoinSpec, JoinStats, SparseKNNIndex
@@ -1055,7 +1078,7 @@ def phase9_drivers(dev, name, R, S, rows, o_s, o_i, fused, reset_counts):
     from repro_torch.testing import assert_topk_close
 
     s_blocks = -(-S.num_vectors // BLOCK)
-    cached, launches = phase9_cached(dev, R, S, rows, o_s, o_i, fused, reset_counts)
+    cached, launches, medians = phase9_cached(dev, R, S, rows, o_s, o_i, fused, reset_counts)
 
     # streaming: knn_join of the first R block, per algorithm and by default
     head = R.rows(0, BLOCK)
@@ -1114,7 +1137,7 @@ def phase9_drivers(dev, name, R, S, rows, o_s, o_i, fused, reset_counts):
           f"generated in {time.perf_counter() - t0:.2f} s")
     s_rows = np.sort(np.random.default_rng(1).choice(n_r, size=256, replace=False))
     so_s, so_i = scipy_topk(sR, sS, s_rows, K)
-    spectra, spectra_launches = phase9_cached(dev, sR, sS, s_rows, so_s, so_i, None,
+    spectra, spectra_launches, _ = phase9_cached(dev, sR, sS, s_rows, so_s, so_i, None,
                                               reset_counts)
     launches += spectra_launches
     for alg in DRIVERS[1:]:
@@ -1151,7 +1174,7 @@ def phase9_drivers(dev, name, R, S, rows, o_s, o_i, fused, reset_counts):
           f"the plain version; in turns (plain, kernel, kernel, plain) "
           f"{'; '.join(f'{x:.4f}' for x in turns)} ms, bound {m_bound:.4f} ms ({m_by})")
     return launches, (err, turns[1], turns[0], m_bound, m_by), {
-        alg: res for alg, (_, res) in cached.items()}
+        alg: res for alg, (_, res) in cached.items()}, medians
 
 
 # phase 10: the datastore's lifecycle and the approx tier at synthetic-10k
@@ -1616,6 +1639,406 @@ def phase10(dev, R, S, fresh, reset_counts):
     return launches, errs
 
 
+# phase 11: the sharded store on one card (src/repro_torch/store/sharded.py),
+# through the entry points a user calls.  (a) synthetic-10k in 4 shards of
+# 2,500: at s_block 500 each shard's blocks are the single index's, so the
+# two agree bit for bit; at the config's s_block 2,048 each shard walks a
+# block of 2,048 rows and one of 452 (8 blocks where one index walks 5).
+# (b) 2 replicas x 4 shards through a replica kill, mutations while it is
+# dead, resync and the half-open probe; the unreplicated loss semantics;
+# every mutation against a fresh store over the same live rows.  (c) the
+# yeast-worm config's S (src/repro/configs/paper_knn.py:22: 207,804 rows,
+# dim 20,000, 80 peaks a row) in 4 shards, R cut from 35,236 rows to 4,096
+# (2 R blocks); IIIB's superset stacks run at the full S only when the
+# host can hold 3x them (the host mirror, its padded copy and the shard
+# arrays), else at STORE_IIIB_CUT rows.  (d) topk_merge on one tree merge
+# and one shard block step, beside its plain version and torch.topk.
+STORE_SHARDS = 4
+STORE_EQ_BLOCK = 500           # 2,500-row shards in blocks of the single index's
+STORE_HEAD = 2048              # R rows of the mutation checks (one R block)
+YEAST = (207_804, 20_000, 80)  # yeast-worm's S: rows, dim, peaks a row
+YEAST_R = 4096                 # R rows, cut from 35,236
+STORE_IIIB_CUT = 49_152        # IIIB's S rows when the host cannot hold the full S's stacks
+
+
+def host_available_bytes():
+    """MemAvailable of /proc/meminfo, in bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("MemAvailable not in /proc/meminfo")
+
+
+def device_bytes():
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def store_query_counted(store, R, reset_counts, **kw):
+    """One store query of R (``kw`` to ``query``) with the counts from 0
+    around it: (result, seconds, JoinStats, topk_merge launches), with the
+    dispatch shape and the launch count asserted."""
+    from repro_torch.core.engine import JoinStats
+    from repro_torch.kernels.topk_merge.kernel import topk_merge_cuda
+
+    stats = JoinStats()
+    res, secs, merges = launches_of(topk_merge_cuda, lambda: store.query(R, stats=stats, **kw),
+                                    reset_counts)
+    r_blocks = -(-R.num_vectors // (store.spec.r_block or BLOCK))
+    assert stats.device_dispatches == stats.host_syncs == r_blocks, stats
+    # a merge each block step of each shard, and n_shards - 1 in the tree
+    want = r_blocks * (store.n_shards * store._num_blocks_stacked + store.n_shards - 1)
+    assert merges == want, (merges, want)
+    assert res.scores.shape == (R.num_vectors, K) and bool(torch.isfinite(res.scores[:, 0]).all())
+    return res, secs, stats, merges
+
+
+def phase11_equal_blocks(R, S, reset_counts):
+    """(a) at s_block 500: the 4-shard store and one index, bit for bit.
+    Returns the store queries' topk_merge launches."""
+    from repro_torch.core.engine import JoinSpec, SparseKNNIndex
+    from repro_torch.store import ShardedKNNStore
+
+    launches = 0
+    for alg in DRIVERS:
+        spec = JoinSpec(k=K, algorithm=alg, r_block=BLOCK, s_block=STORE_EQ_BLOCK, tile=TILE)
+        want, single_s = timed(lambda: SparseKNNIndex.build(S, spec).query(R))
+        store = ShardedKNNStore.build(S, spec, num_shards=STORE_SHARDS)
+        assert store.shard_rows == [N_S // STORE_SHARDS] * STORE_SHARDS
+        got, secs, _, merges = store_query_counted(store, R, reset_counts)
+        launches += merges
+        same = torch.equal(got.scores, want.scores) and torch.equal(got.ids, want.ids)
+        print(f"phase 11 {alg} s_block {STORE_EQ_BLOCK}: {STORE_SHARDS} shards x "
+              f"{store._num_blocks_stacked} blocks, bit-identical to one index of "
+              f"{-(-N_S // STORE_EQ_BLOCK)} blocks {same}; store query {secs:.4f} s, one index "
+              f"{single_s:.4f} s (build included), topk_merge launches {merges}")
+        assert same, alg
+        del store, want, got
+    return launches
+
+
+def phase11_config_blocks(smi, R, S, rows, o_s, o_i, singles, single_s, reset_counts):
+    """(a) at the config's s_block: build, QUERIES queries, the counts, the
+    times beside phase 9's single index, and the checks.  Returns (topk_merge
+    launches, the iib store)."""
+    from repro_torch.core.engine import JoinSpec
+    from repro_torch.store import ShardedKNNStore
+    from repro_torch.testing import assert_topk_close
+
+    launches, keep = 0, None
+    for alg in DRIVERS:
+        spec = JoinSpec(k=K, algorithm=alg, r_block=BLOCK, s_block=BLOCK, tile=TILE)
+        torch.cuda.empty_cache()
+        before = device_bytes()
+        torch.cuda.reset_peak_memory_stats()
+        store, build_s = timed(lambda: ShardedKNNStore.build(S, spec, num_shards=STORE_SHARDS))
+        held, peak = device_bytes() - before, torch.cuda.max_memory_allocated()
+        builds = store.stats.index_builds
+        assert builds == (0 if alg == "bf" else store.num_blocks), builds
+        results, times = [], []
+        for _ in range(QUERIES):
+            res, secs, stats, merges = store_query_counted(store, R, reset_counts)
+            launches += merges
+            results.append(res)
+            times.append(secs)
+        assert store.stats.index_builds == builds, "query-time index build"
+        last = results[-1]
+        for res in results[:-1]:
+            assert torch.equal(res.scores, last.scores) and torch.equal(res.ids, last.ids), alg
+        s_err = assert_topk_close(last.scores.cpu(), last.ids.cpu(), singles[alg].scores.cpu(),
+                                  singles[alg].ids.cpu(), RTOL, ATOL)
+        o_err = assert_topk_close(last.scores.cpu().numpy()[rows], last.ids.cpu().numpy()[rows],
+                                  o_s, o_i, RTOL, ATOL)
+        med = float(np.median(times))
+        print(f"phase 11 {alg} s_block {BLOCK} on {smi}: {STORE_SHARDS} shards x "
+              f"{store._num_blocks_stacked} blocks ({store.num_blocks} real), build "
+              f"{build_s:.3f} s (holds {held / 2**20:.1f} MiB, peak allocated "
+              f"{peak / 2**20:.1f} MiB), queries {'; '.join(f'{t:.4f}' for t in times)} s "
+              f"(median {med:.4f}, {med / single_s[alg]:.2f}x phase 9's one index at "
+              f"{single_s[alg]:.4f}), per query dispatches {stats.device_dispatches} host syncs "
+              f"{stats.host_syncs} topk_merge launches {merges} (= {stats.device_dispatches} x "
+              f"({STORE_SHARDS} x {store._num_blocks_stacked} block steps + "
+              f"{STORE_SHARDS - 1} tree merges)), index builds {builds} frozen; vs "
+              f"phase 9's one index max|dscore|={s_err:.3e}, 256 rows vs float64 scipy "
+              f"max|dscore|={o_err:.3e}")
+        if alg == "iiib":
+            print(f"  iiib per-shard final thresholds, R block 0: "
+                  f"{np.round(stats.min_prune_trace[0], 6).tolist()}")
+        if alg == "iib":
+            keep = store
+        del store, results
+    return launches, keep
+
+
+def live_rows_batch(store):
+    """(the store's live rows in shard order as a batch, their global ids)."""
+    from repro_torch.core.engine import _pad_feature_axis
+    from repro_torch.sparse.format import from_arrays
+
+    f = max(s._idx.shape[1] for s in store.shards)
+    parts = [_pad_feature_axis(s._idx[s._alive], s._val[s._alive], f, store.dim)
+             + (s._nnz[s._alive], g[s._alive])
+             for s, g in zip(store.shards, store._gids)]
+    idx, val, nnz, gids = (np.concatenate(x) for x in zip(*parts))
+    return from_arrays(idx, val, nnz, store.dim), gids
+
+
+def against_fresh(store, R, reset_counts):
+    """The store's query of R against a fresh store over its live rows (ids
+    mapped back): (max |Δscore|, the mutated store's query seconds,
+    topk_merge launches)."""
+    from repro_torch.store import ShardedKNNStore
+    from repro_torch.testing import assert_topk_close
+
+    got, secs, _, merges = store_query_counted(store, R, reset_counts)
+    S_live, gids = live_rows_batch(store)
+    fresh = ShardedKNNStore.build(S_live, store.spec, num_shards=store.n_shards)
+    want = fresh.query(R)
+    w_ids = want.ids.cpu().numpy()
+    mapped = np.where(w_ids >= 0, gids[np.maximum(w_ids, 0)], -1)
+    err = assert_topk_close(got.scores.cpu().numpy(), got.ids.cpu().numpy(),
+                            want.scores.cpu().numpy(), mapped, RTOL, ATOL)
+    return err, secs, merges
+
+
+def phase11_replicas(smi, R, S, reset_counts):
+    """(b) replicas, losses and mutations.  Returns topk_merge launches."""
+    from repro_torch.core.engine import JoinSpec, SparseKNNIndex
+    from repro_torch.runtime.fault import FaultPlan, FaultSpec, ReplicaHealth, ShardLostError
+    from repro_torch.sparse.datagen import synthetic_sparse
+    from repro_torch.store import ShardedKNNStore
+    from repro_torch.testing import assert_topk_close
+
+    launches = 0
+    head = R.rows(0, STORE_HEAD)
+    spec = JoinSpec(k=K, algorithm="iib", r_block=BLOCK, s_block=BLOCK, tile=TILE)
+    torch.cuda.empty_cache()
+    before = device_bytes()
+    store, build_s = timed(lambda: ShardedKNNStore.build(S, spec, num_shards=STORE_SHARDS,
+                                                         replicas=2))
+    held = device_bytes() - before
+    own = all(store._stacks[0][k].data_ptr() != store._stacks[1][k].data_ptr()
+              for k in store._stacks[0])
+    assert own and store.verify_replicas()
+    clean, _, _, n = store_query_counted(store, R, reset_counts)
+    launches += n
+    store.fault_plan = FaultPlan([FaultSpec("replica_error", replica=1, at_dispatch=1)])
+    killed, kill_s, _, n = store_query_counted(store, R, reset_counts)
+    store.fault_plan = None
+    launches += n
+    same = torch.equal(killed.scores, clean.scores) and torch.equal(killed.ids, clean.ids)
+    assert same and store.stats.replica_failovers == 1 and store.dead_replicas == (1,)
+    assert killed.missing_shards == () and store.lost_shards == ()
+    extra = synthetic_sparse(512, dim=DIM, nnz_mean=NNZ_MEAN, seed=21)
+    dead = np.sort(np.random.default_rng(11).choice(N_S, 300, replace=False))
+    store.add(extra)
+    store.delete(dead)
+    dirty = sorted(store._replica_dirty[1])
+    assert dirty and store.needs_resync
+    while_dead, _, _, n = store_query_counted(store, head, reset_counts)
+    launches += n
+    (resynced, resync_s) = timed(store.resync_replicas)
+    assert resynced == (1,) and store.health.state(1) == ReplicaHealth.HALF_OPEN
+    assert store.verify_replicas()
+    d1 = store.stats.replica_dispatches.get(1, 0)
+    probe, _, _, n = store_query_counted(store, head, reset_counts)
+    launches += n
+    assert store.stats.replica_dispatches[1] == d1 + 1
+    assert store.health.state(1) == ReplicaHealth.LIVE and not store.needs_resync
+    assert torch.equal(probe.scores, while_dead.scores) and torch.equal(probe.ids, while_dead.ids)
+    assert not np.isin(probe.ids.cpu().numpy(), dead).any()
+    print(f"phase 11 replicas (2 x {STORE_SHARDS} shards, iib) on {smi}: build {build_s:.3f} s "
+          f"(holds {held / 2**20:.1f} MiB, two tensor sets of their own), a replica_error "
+          f"mid-query: bit-identical to the clean query {same}, {kill_s:.4f} s, failovers "
+          f"{store.stats.replica_failovers}; add 512 + delete 300 while dead queued shards "
+          f"{dirty}; resync {resync_s:.4f} s, verify_replicas True, the half-open probe served "
+          f"by replica 1 and bit-identical to replica 0's answer, replica 1 live again; "
+          f"replica_dispatches {store.stats.replica_dispatches}")
+    del store, clean, killed, while_dead, probe
+
+    # unreplicated: the loss raises, allow_partial serves the survivors
+    bf_spec = JoinSpec(k=K, algorithm="bf", r_block=BLOCK, s_block=BLOCK, tile=TILE)
+    flat = ShardedKNNStore.build(S, bf_spec, num_shards=STORE_SHARDS)
+    flat.fault_plan = FaultPlan([FaultSpec("shard_error", shard=1, at_dispatch=0)])
+    try:
+        flat.query(head)
+        raise AssertionError("an unreplicated shard loss must raise")
+    except ShardLostError as e:
+        assert e.shard == 1 and flat.lost_shards == (1,)
+    partial, _, _, n = store_query_counted(flat, head, reset_counts, allow_partial=True)
+    launches += n
+    lo, hi = N_S // STORE_SHARDS, 2 * N_S // STORE_SHARDS
+    ref = SparseKNNIndex.build(S, bf_spec)
+    ref.delete(np.arange(lo, hi))
+    want = ref.query(head)
+    p_err = assert_topk_close(partial.scores.cpu(), partial.ids.cpu(), want.scores.cpu(),
+                              want.ids.cpu(), RTOL, ATOL)
+    ids = partial.ids.cpu().numpy()
+    assert partial.missing_shards == (1,) and not ((ids >= lo) & (ids < hi)).any()
+    print(f"phase 11 unreplicated shard_error: ShardLostError(1) raised; allow_partial "
+          f"missing_shards {partial.missing_shards}, no id of shard 1, vs one index with "
+          f"shard 1's rows deleted max|dscore|={p_err:.3e}")
+    del flat, ref, partial
+
+    # mutations, each against a fresh store over the same live rows
+    mspec = JoinSpec(k=K, algorithm="iiib", r_block=BLOCK, s_block=BLOCK, tile=TILE)
+    store = ShardedKNNStore.build(S, mspec, num_shards=STORE_SHARDS)
+    ttl_rows = synthetic_sparse(256, dim=DIM, nnz_mean=NNZ_MEAN, seed=23)
+    steps = (("add 1,000", lambda: store.add(synthetic_sparse(1000, dim=DIM,
+                                                              nnz_mean=NNZ_MEAN, seed=22))),
+             ("delete 500", lambda: store.delete(np.sort(np.random.default_rng(12).choice(
+                 N_S, 500, replace=False)))),
+             ("expire 256", lambda: (store.add(ttl_rows, ttl=10.0, now=100.0),
+                                     store.expire(now=120.0))),
+             ("compact", lambda: store.compact()),
+             ("refreeze", lambda: store.refreeze()))
+    parts = []
+    for label, step in steps:
+        _, step_s = timed(step)
+        err, q_s, n = against_fresh(store, head, reset_counts)
+        launches += n
+        parts.append(f"{label} {step_s:.3f} s (query {q_s:.4f} s, vs fresh "
+                     f"max|dscore|={err:.3e})")
+    assert store.stats.expired == 256 and all(sh.dead_rows == 0 for sh in store.shards)
+    print(f"phase 11 iiib mutations on {STORE_SHARDS} shards, each vs a fresh store over the "
+          f"live rows: {'; '.join(parts)}; shard_rows {store.shard_rows}")
+    del store
+    return launches
+
+
+def phase11_yeast(smi, reset_counts):
+    """(c) the store at yeast-worm's S.  Returns topk_merge launches."""
+    import gc
+
+    from repro_torch.core import iiib as iiib_mod
+    from repro_torch.core.engine import JoinSpec
+    from repro_torch.core.index import max_rows_bound
+    from repro_torch.sparse.datagen import spectra_like
+    from repro_torch.sparse.format import num_tiles
+    from repro_torch.store import ShardedKNNStore
+    from repro_torch.testing import assert_topk_close
+
+    n_s, dim, peaks_mean = YEAST
+    t0 = time.perf_counter()
+    S = spectra_like(n_s, dim=dim, peaks_mean=peaks_mean, seed=1)
+    R = spectra_like(YEAST_R, dim=dim, peaks_mean=peaks_mean, seed=0)
+    rows = np.sort(np.random.default_rng(2).choice(YEAST_R, size=256, replace=False))
+    oracle = {n_s: scipy_topk(R, S, rows, K)}
+    print(f"data: yeast-worm S {n_s} x dim {dim} (features a row "
+          f"{float(S.nnz.double().mean()):.1f}), R {YEAST_R}, and the float64 top-k of 256 rows, "
+          f"in {time.perf_counter() - t0:.2f} s")
+    # IIIB's host need: 3x its stacks, from the superset width of the first block
+    freq = np.bincount(S.indices.numpy()[S.indices.numpy() < dim], minlength=dim)
+    rank = iiib_mod.s_frequency_rank(freq)
+    width = max_rows_bound(S.rows(0, BLOCK), TILE, rank=rank)
+    t1 = num_tiles(dim, TILE) + 1
+    shard_blocks = -(-(-(-n_s // STORE_SHARDS)) // BLOCK)
+    block_bytes = t1 * width * (TILE + 1) * 4 + BLOCK * (t1 - 1) * 4
+    need = 3 * STORE_SHARDS * shard_blocks * block_bytes
+    avail = host_available_bytes()
+    iiib_rows = n_s if avail >= need else STORE_IIIB_CUT
+    print(f"phase 11 yeast-worm host: {avail / 2**30:.1f} GiB available; IIIB's stacks at the "
+          f"full S, superset width {width}: {need / 3 / 2**30:.1f} GiB, 3x {need / 2**30:.1f} "
+          f"GiB -> IIIB at {iiib_rows} S rows")
+    launches = 0
+    for alg in DRIVERS:
+        s_rows = n_s if alg != "iiib" else iiib_rows
+        S_alg = S if s_rows == n_s else S.rows(0, s_rows)
+        if s_rows not in oracle:
+            oracle[s_rows] = scipy_topk(R, S_alg, rows, K)
+        spec = JoinSpec(k=K, algorithm=alg, r_block=BLOCK, s_block=BLOCK, tile=TILE)
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = device_bytes()
+        torch.cuda.reset_peak_memory_stats()
+        store, build_s = timed(lambda: ShardedKNNStore.build(S_alg, spec,
+                                                             num_shards=STORE_SHARDS))
+        held, peak = device_bytes() - before, torch.cuda.max_memory_allocated()
+        res, secs, stats, merges = store_query_counted(store, R, reset_counts)
+        launches += merges
+        o_err = assert_topk_close(res.scores.cpu().numpy()[rows], res.ids.cpu().numpy()[rows],
+                                  *oracle[s_rows], RTOL, ATOL)
+        r_blocks = stats.device_dispatches
+        print(f"phase 11 yeast-worm {alg} on {smi}: S {s_rows} rows in {STORE_SHARDS} shards x "
+              f"{store._num_blocks_stacked} blocks of {BLOCK}, build {build_s:.2f} s (holds "
+              f"{held / 2**30:.2f} GiB on the card, peak allocated {peak / 2**30:.2f} GiB), "
+              f"query of {YEAST_R} rows {secs:.3f} s ({secs / r_blocks:.3f} s per R block), "
+              f"dispatches {stats.device_dispatches} host syncs {stats.host_syncs} topk_merge "
+              f"launches {merges}, list_entries {stats.list_entries}; 256 rows vs float64 "
+              f"scipy max|dscore|={o_err:.3e}")
+        del store, res
+    del S, R
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase11_merge_timing(name, store, R):
+    """(d) topk_merge on one tree merge and on one shard block step of the
+    iib store's first R block, bit for bit its plain version, timed in
+    turns beside it and beside torch.topk of the concatenation.  Returns
+    the largest |Δ|."""
+    from repro_torch.core import iib as iib_mod
+    from repro_torch.core import topk as topk_mod
+    from repro_torch.kernels.topk_merge.kernel import topk_merge_cuda
+    from repro_torch.kernels.topk_merge.ref import topk_merge_plain
+
+    captured = {"tree merge": [], "shard block step": []}
+    real_step, real_merge = iib_mod.merge_step, topk_mod.merge_topk_states
+
+    def step(state, scores, ids):
+        captured["shard block step"].append((state.scores.clone(), state.ids.clone(),
+                                             scores.clone(), ids.clone()))
+        return real_step(state, scores, ids)
+
+    def merge(a, b):
+        captured["tree merge"].append((a.scores.clone(), a.ids.clone(), b.scores.clone(),
+                                       b.ids.clone()))
+        return real_merge(a, b)
+
+    iib_mod.merge_step, topk_mod.merge_topk_states = step, merge
+    try:
+        store.query(R.rows(0, BLOCK))
+    finally:
+        iib_mod.merge_step, topk_mod.merge_topk_states = real_step, real_merge
+    assert len(captured["tree merge"]) == store.n_shards - 1
+    worst = 0.0
+    for label, calls in captured.items():
+        args = calls[0]
+        got, want = topk_merge_cuda(*args), topk_merge_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), label
+        worst = max(worst, max_abs_err(got[0], want[0]))
+        turns = [cuda_ms(lambda: fn(*args), reps=20)
+                 for fn in (topk_merge_plain, topk_merge_cuda, topk_merge_cuda, topk_merge_plain)]
+        lib_ms = cuda_ms(lambda: torch.topk(torch.cat([args[0], args[2]], 1), K, dim=1), reps=20)
+        m_bound, m_by = bound(args[2].numel() * 1.0, nbytes(*args, *got), name)
+        print(f"phase 11 topk_merge on a {label}: N={args[2].shape[0]} M={args[2].shape[1]} "
+              f"k={K}, {float(torch.isfinite(args[2]).double().mean()):.4f} of the offers "
+              f"finite, bit-identical to the plain version; in turns (plain, kernel, kernel, "
+              f"plain) {'; '.join(f'{x:.4f}' for x in turns)} ms, cat+topk {lib_ms:.4f} ms, "
+              f"bound {m_bound:.4f} ms ({m_by})")
+    return worst
+
+
+def phase11(smi, name, R, S, rows, o_s, o_i, singles, single_s, reset_counts):
+    """Phase 11 (see the module docstring).  Returns (topk_merge launches
+    of the main-path runs, the largest topk_merge |Δ|)."""
+    t0 = time.perf_counter()
+    launches = phase11_equal_blocks(R, S, reset_counts)
+    n, iib_store = phase11_config_blocks(smi, R, S, rows, o_s, o_i, singles, single_s,
+                                         reset_counts)
+    launches += n
+    err = phase11_merge_timing(name, iib_store, R)
+    del iib_store
+    launches += phase11_replicas(smi, R, S, reset_counts)
+    launches += phase11_yeast(smi, reset_counts)
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s, topk_merge launches on its main-path "
+          f"runs {launches}")
+    return launches, err
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1949,7 +2372,7 @@ def main():
 
     # phase 9: the paper's three drivers (counts from 0 around each main-path run)
     t0 = time.perf_counter()
-    driver_merges, driver_merge_case, driver_results = phase9_drivers(
+    driver_merges, driver_merge_case, driver_results, driver_medians = phase9_drivers(
         dev, name, R, S, rows, o_s, o_i, q2, reset_counts)
     print(f"phase 9: {time.perf_counter() - t0:.1f} s, topk_merge launches on its main-path "
           f"runs {driver_merges}")
@@ -1958,6 +2381,11 @@ def main():
     # around each main-path run)
     life_launches, life_errs = phase10(dev, R, S, dict(driver_results, **{"iib+kernel": q2}),
                                        reset_counts)
+
+    # phase 11: the sharded store on one card (counts from 0 around each
+    # main-path run)
+    store_merges, store_merge_err = phase11(smi, name, R, S, rows, o_s, o_i, driver_results,
+                                            driver_medians, reset_counts)
 
     print(json.dumps({"kernels": [
         {
@@ -1993,8 +2421,9 @@ def main():
             "source": "src/repro_torch/kernels/csrc/topk_merge.cu",
             "replaces": "src/repro/kernels/topk_merge/kernel.py:52",
             "launches": unfused_counts[1] + split_counts[1] + driver_merges
-            + life_launches["topk_merge"],
-            "max_abs_err": max(merge_err, driver_merge_case[0], life_errs["topk_merge"]),
+            + life_launches["topk_merge"] + store_merges,
+            "max_abs_err": max(merge_err, driver_merge_case[0], life_errs["topk_merge"],
+                               store_merge_err),
             "ms": merge_ms,
             "plain_ms": merge_plain_ms,
             "bound_ms": merge_bound_ms,

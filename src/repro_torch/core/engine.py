@@ -259,11 +259,16 @@ def plan(r_shape, s_shape, spec: JoinSpec, occupied_tiles: Optional[int] = None,
 
 @dataclasses.dataclass
 class JoinResult:
-    """One query's output: (n_r, k) global-S neighbours plus work stats."""
+    """One query's output: (n_r, k) global-S neighbours plus work stats.
+
+    ``missing_shards`` is non-empty only for degraded sharded-store queries
+    (``allow_partial=True`` with shards lost): the result is exact over the
+    surviving shards and excludes the listed ones entirely."""
 
     scores: torch.Tensor
     ids: torch.Tensor
     stats: JoinStats
+    missing_shards: Tuple[int, ...] = ()
 
     @property
     def state(self) -> TopKState:

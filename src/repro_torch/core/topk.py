@@ -10,12 +10,13 @@ Tie order is part of the contract: the earliest-offered candidate wins.
 ``[state, candidates]`` and keeps the first k — ``torch.topk`` promises no
 order among equal scores.  ``merge_step`` (the join drivers' block step) and
 ``merge_topk_states`` merge with the same tie order, through the
-topk_merge kernel on CUDA.
+topk_merge kernel on CUDA, and so does ``tree_reduce_topk``, the sharded
+store's reduction over its shards' states.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -71,6 +72,23 @@ def merge_topk_states(a: TopKState, b: TopKState) -> TopKState:
     package's ``merge_topk_states``.
     """
     return TopKState(*topk_merge_cuda(a.scores, a.ids, b.scores, b.ids))
+
+
+def tree_reduce_topk(states: Sequence[TopKState]) -> TopKState:
+    """Merge per-shard TopKStates, listed in shard order, into the global
+    top-k: a log-depth binary tree of :func:`merge_topk_states`, pairing
+    (0, 1), (2, 3), ... in each round with an odd last state carried up, so
+    the lower shard always sits on the tie-winning side (shard i's rows
+    precede shard i+1's in the concatenated S).  ``len(states) - 1`` merges,
+    each a topk_merge launch on CUDA states.  The reference all-gathers the
+    states over a mesh axis first; here they already lie on one device."""
+    states = list(states)
+    if not states:
+        raise ValueError("tree_reduce_topk needs at least one state")
+    while len(states) > 1:
+        states = [merge_topk_states(states[i], states[i + 1]) if i + 1 < len(states)
+                  else states[i] for i in range(0, len(states), 2)]
+    return states[0]
 
 
 def pad_topk_state(state: TopKState, n_pad: int) -> TopKState:

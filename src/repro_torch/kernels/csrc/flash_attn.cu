@@ -358,7 +358,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh, int s
   const cudaError_t err = cudaFuncSetAttribute(
       flash_attn_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)bh, (unsigned)((sq + Cfg<HD>::BQ - 1) / Cfg<HD>::BQ));
+  const int q_tiles = (sq + Cfg<HD>::BQ - 1) / Cfg<HD>::BQ;
+  if (q_tiles > 65535) return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)bh, (unsigned)q_tiles);
   flash_attn_mma_kernel<HD><<<grid, kThreads, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(out), sq, skv, group, causal, window, sm_scale);
@@ -721,7 +723,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh, int s
   const cudaError_t err = cudaFuncSetAttribute(
       flash_attn_tf32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)bh, (unsigned)((sq + Cfg<HD>::BQ - 1) / Cfg<HD>::BQ));
+  const int q_tiles = (sq + Cfg<HD>::BQ - 1) / Cfg<HD>::BQ;
+  if (q_tiles > 65535) return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)bh, (unsigned)q_tiles);
   flash_attn_tf32_kernel<HD><<<grid, Cfg<HD>::THREADS, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(out), sq, skv, group, causal, window, sm_scale);
@@ -747,7 +751,9 @@ int dispatch(int hd, const void* q, const void* k, const void* v, void* out, int
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, void* out,
                                  int dtype, int bh, int sq, int skv, int hd, int group,
                                  int causal, int window, float sm_scale, void* stream) {
-  if (bh < 1 || sq < 1 || skv < 0 || group < 1 || bh % group || bh > 65535)
+  // bh is gridDim.x (up to 2^31 - 1); the query tiles are gridDim.y, which
+  // each launch<HD> holds to 65,535
+  if (bh < 1 || sq < 1 || skv < 0 || group < 1 || bh % group)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

@@ -31,7 +31,14 @@ from repro_torch.kernels.flash_attn.ref import flash_attention_plain
 KERNEL_WIDTHS = (16, 32, 64, 128, 256)
 MAX_HEAD_DIM = KERNEL_WIDTHS[-1]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_GRID_Y = 65535   # CUDA's limit on gridDim.y, the query tiles'; gridDim.x (BH) is 2^31 - 1
 _ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 8 + (ctypes.c_float,)
+
+
+def query_tile(width: int, dtype: torch.dtype) -> int:
+    """Query rows a CTA of the kernel at ``width`` takes (``Cfg<HD>::BQ``):
+    the grid is (BH, ceil(Sq / query_tile))."""
+    return 64 if dtype == torch.bfloat16 and width == 256 else 128
 
 
 def kernel_width(hd: int) -> int:
@@ -76,10 +83,13 @@ def flash_attention_cuda(
     check("v", v, q.dtype, (kvh, skv, hd), dev)
     if any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("q, k and v must start on a 16-byte boundary")
-    if bh > 65535:
-        raise ValueError(f"BH={bh} exceeds the kernel's grid (65,535)")
 
     width = kernel_width(hd)
+    q_tiles = -(-sq // query_tile(width, q.dtype))
+    if q_tiles > MAX_GRID_Y:
+        raise ValueError(f"Sq={sq} makes {q_tiles} query tiles, past the kernel grid's "
+                         f"gridDim.y limit ({MAX_GRID_Y:,}); BH is gridDim.x and takes any "
+                         "int32 count")
     if width != hd:
         q, k, v = (pad_head_width(x, width) for x in (q, k, v))
     out = torch.empty_like(q)

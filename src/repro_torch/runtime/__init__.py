@@ -1,0 +1,7 @@
+from repro_torch.runtime.fault import (  # noqa: F401
+    FaultPlan,
+    FaultSpec,
+    RetryPolicy,
+    ShardLostError,
+    Supervisor,
+)

@@ -8,7 +8,9 @@ that is not a multiple of 4, and the paper's three drivers (BF, IIB
 without the kernel, IIIB) in both modes, each block step merging through
 topk_merge_cuda, and the datastore's lifecycle (extend, delete,
 expire, compact, refreeze) and the approx tier on every path, with the
-join kernels held to their plain versions on masked columns.
+join kernels held to their plain versions on masked columns, and the
+sharded store (4 shards, exact and approx, and 2 replicas through a
+failover) against its CPU path, its merges counted on topk_merge_cuda.
 Every test here needs a CUDA device and skips without one.  The file imports neither jax
 nor repro, so it runs on a machine with the card alone:
 
@@ -663,6 +665,34 @@ def test_flash_wrapper_rejects_bad_inputs(cuda):
         flash_attention_cuda(q, k[:1].repeat(3, 1, 1), v[:1].repeat(3, 1, 1))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_takes_bh_past_65535(cuda, dtype):
+    """B·H = 65,536 heads (gridDim.x, whose limit is 2^31 - 1) at Sq 16,
+    hd 16: the wrapper used to refuse BH > 65,535, the limit of gridDim.y.
+    Held to the plain version, every head."""
+    q, k, v = _qkv(cuda, 65_536, 65_536, 16, 16, 16, dtype)
+    before = flash_attention_cuda.launches
+    got = flash_attention_cuda(q, k, v, causal=True, sm_scale=0.25)
+    assert flash_attention_cuda.launches == before + 1
+    flash_close(got, flash_attention_plain(q, k, v, causal=True, sm_scale=0.25))
+
+
+def test_flash_refuses_query_tiles_past_grid_y_naming_the_limit(cuda):
+    """ceil(Sq / 128) > 65,535 query tiles (gridDim.y) is refused before
+    any launch, and the message names the limit; one query tile fewer runs."""
+    from repro_torch.kernels.flash_attn.kernel import MAX_GRID_Y, query_tile
+
+    sq = MAX_GRID_Y * query_tile(16, torch.float32) + 1
+    q = torch.zeros((1, sq, 16), device=cuda)
+    k = v = torch.zeros((1, 8, 16), device=cuda)
+    before = flash_attention_cuda.launches
+    with pytest.raises(ValueError, match="gridDim.y limit \\(65,535\\)"):
+        flash_attention_cuda(q, k, v, causal=False)
+    assert flash_attention_cuda.launches == before
+    out = flash_attention_cuda(q[:, : sq - 1], k, v, causal=False)
+    assert out.shape == (1, sq - 1, 16) and bool(torch.isfinite(out).all())
+
+
 def _wkv_inputs(dev, shape, u_shape, shift, dtype, seed=0):
     g = torch.Generator().manual_seed(seed)
     r, k, v = (0.5 * torch.randn(shape, generator=g) for _ in range(3))
@@ -952,3 +982,85 @@ def test_approx_on_card_matches_cpu(cuda, alg, kernel, monkeypatch):
     for step in ("fresh", "deleted"):
         a, b = card[True, step], card[False, step]
         assert torch.equal(a.scores, b.scores) and torch.equal(a.ids, b.ids)
+
+
+def _store_data():
+    """R 300 and S 1,001 rows at dim 2000: 4 shards of 251/250/250/250,
+    ragged in their last 256-row block."""
+    return (synthetic_sparse(300, dim=2000, nnz_mean=40, seed=0),
+            synthetic_sparse(1001, dim=2000, nnz_mean=40, seed=1))
+
+
+STORE_COUNTS = COUNTS + ("candidate_rows", "scanned_rows")
+
+
+@pytest.mark.parametrize("acc", ["exact", "approx"])
+@pytest.mark.parametrize("alg", DRIVERS)
+def test_store_on_card_matches_cpu(cuda, alg, acc, monkeypatch):
+    """The sharded store, 4 shards on the card: the CPU path's result (ids
+    equal outside tie groups), every counter and the thresholds equal,
+    one dispatch and one host sync per R block, each shard block step and
+    each tree merge a topk_merge_cuda launch, no plain merge."""
+    from repro_torch.store import ShardedKNNStore
+
+    R, S = _store_data()
+    kw = {"target_recall": 0.9} if acc == "approx" else {}
+    spec = JoinSpec(k=5, algorithm=alg, r_block=128, s_block=256, **kw)
+    card = ShardedKNNStore.build(S, spec, num_shards=4)
+    cpu = ShardedKNNStore.build(S, spec, num_shards=4, device="cpu")
+    assert card._stacks[0]["ids"].device.type == cuda.type
+    before = topk_merge_cuda.launches
+    _refuse_plain_merges(monkeypatch)
+    got = card.query(R)
+    monkeypatch.undo()
+    merges = topk_merge_cuda.launches - before
+    want = cpu.query(R)
+    r_blocks = 3
+    assert merges == r_blocks * (4 * card._num_blocks_stacked + 3), merges
+    assert got.scores.device.type == cuda.type
+    assert_topk_close(got.scores.cpu().numpy(), got.ids.cpu().numpy(), want.scores.numpy(),
+                      want.ids.numpy(), RTOL, ATOL)
+    for c in STORE_COUNTS:
+        assert getattr(got.stats, c) == getattr(want.stats, c), c
+    assert got.stats.device_dispatches == got.stats.host_syncs == r_blocks
+    for g, w in zip(got.stats.min_prune_trace, want.stats.min_prune_trace):
+        np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL)
+    if acc == "exact":
+        single = SparseKNNIndex.build(S, spec).query(R)
+        assert_topk_close(got.scores.cpu().numpy(), got.ids.cpu().numpy(),
+                          single.scores.cpu().numpy(), single.ids.cpu().numpy(), RTOL, ATOL)
+
+
+def test_store_failover_on_card(cuda):
+    """2 replicas x 4 shards on the card: a replica kill mid-query fails
+    over (the clean result, bit for bit), writes while it is dead queue it
+    dirty, resync + verify_replicas, and the half-open probe re-admits it."""
+    from repro_torch.runtime.fault import FaultPlan, FaultSpec, ReplicaHealth
+    from repro_torch.store import ShardedKNNStore
+
+    R, S = _store_data()
+    spec = JoinSpec(k=5, algorithm="iib", r_block=128, s_block=256)
+    store = ShardedKNNStore.build(S, spec, num_shards=4, replicas=2)
+    assert all(store._stacks[0][k].data_ptr() != store._stacks[1][k].data_ptr()
+               for k in store._stacks[0])
+    clean = store.query(R)
+    store.fault_plan = FaultPlan([FaultSpec("replica_error", replica=1)])
+    res = store.query(R)
+    store.fault_plan = None
+    assert torch.equal(res.scores, clean.scores) and torch.equal(res.ids, clean.ids)
+    assert store.stats.replica_failovers == 1 and store.dead_replicas == (1,)
+    store.add(synthetic_sparse(40, dim=2000, nnz_mean=40, seed=9))
+    store.delete(np.arange(0, 1001, 11))
+    assert store._replica_dirty[1]
+    assert store.resync_replicas() == (1,)
+    assert store.health.state(1) == ReplicaHealth.HALF_OPEN
+    assert store.verify_replicas()
+    after = store.query(R)
+    assert store.health.state(1) == ReplicaHealth.LIVE
+    cpu = ShardedKNNStore.build(S, spec, num_shards=4, device="cpu")
+    cpu.add(synthetic_sparse(40, dim=2000, nnz_mean=40, seed=9))
+    cpu.delete(np.arange(0, 1001, 11))
+    want = cpu.query(R)
+    assert_topk_close(after.scores.cpu().numpy(), after.ids.cpu().numpy(), want.scores.numpy(),
+                      want.ids.numpy(), RTOL, ATOL)
+
