@@ -133,7 +133,33 @@ and, through the entry points a user calls:
            then the yeast-worm config's S (207,804 rows, dim 20,000, 80
            peaks) in 4 shards for bf, iib and iiib (iiib at the full S when
            the host holds 3x its stacks), R 4,096 rows, against scipy, with
-           build and query times and held and peak device memory.
+           build and query times and held and peak device memory;
+  phase 12 the store's checkpoints and the serving front-end, on phase
+           11's stores: (c) a KNNScheduler over the 4-shard IIB store
+           (r_block 2,048) serving all 10,000 R rows as seeded requests of
+           1-64 rows with k from 1 to 5, submitted at once (no failure, no
+           query-time index build, each answer within tolerance of the
+           direct 10,000-row query, one batch rebuilt with _assemble and
+           queried directly bit for bit the answers), after a warm run
+           under ProfileCapture whose trace must hold topk_merge kernels;
+           (d) the same stream through a shard_error on shard 1, with
+           recover from a checkpoint saved first: allow_partial (degraded
+           answers without shard 1's ids, recovery in the background, a
+           second wave all full and bit for bit its assembled batch) and
+           queued behind recovery (every answer full); (a) durability at
+           synthetic-10k for IIB and IIIB: add 2,000 rows (256 with a TTL),
+           delete 500, expire, save, load at 4 shards (bit for bit, index
+           builds frozen) and at 2 (within tolerance), an add to one shard
+           and save_dirty (the clean shards' leaves hard-linked, counted by
+           inode), mark_lost(1) with an allow_partial query, recover (bit
+           for bit), and a corrupt leaf in the newest step (latest_step
+           falls back, recover rebuilds from step 0, bit for bit its
+           query); (b) the yeast-worm BF store (S not cut): save, load,
+           mark_lost and recover, each bit for bit on one R block of 2,048.
+           Times, MiB written and hard-linked, MiB/s, ServeMetrics' p50/p99
+           and rows/s, batches and mean fill, and topk_merge launches, each
+           beside the card's name and power limit.  Checkpoints go to a
+           temporary directory, removed at the end.
 
 Every flash_attn and wkv comparison goes through repro_torch.testing
 (flash_close, wkv_close: one tolerance table with the card tests) and
@@ -1908,7 +1934,8 @@ def phase11_replicas(smi, R, S, reset_counts):
 
 
 def phase11_yeast(smi, reset_counts):
-    """(c) the store at yeast-worm's S.  Returns topk_merge launches."""
+    """(c) the store at yeast-worm's S.  Returns (topk_merge launches, the
+    BF store and R, which phase 12 saves and recovers)."""
     import gc
 
     from repro_torch.core import iiib as iiib_mod
@@ -1941,7 +1968,7 @@ def phase11_yeast(smi, reset_counts):
     print(f"phase 11 yeast-worm host: {avail / 2**30:.1f} GiB available; IIIB's stacks at the "
           f"full S, superset width {width}: {need / 3 / 2**30:.1f} GiB, 3x {need / 2**30:.1f} "
           f"GiB -> IIIB at {iiib_rows} S rows")
-    launches = 0
+    launches, keep = 0, None
     for alg in DRIVERS:
         s_rows = n_s if alg != "iiib" else iiib_rows
         S_alg = S if s_rows == n_s else S.rows(0, s_rows)
@@ -1967,11 +1994,13 @@ def phase11_yeast(smi, reset_counts):
               f"dispatches {stats.device_dispatches} host syncs {stats.host_syncs} topk_merge "
               f"launches {merges}, list_entries {stats.list_entries}; 256 rows vs float64 "
               f"scipy max|dscore|={o_err:.3e}")
+        if alg == "bf":
+            keep = store
         del store, res
-    del S, R
+    del S
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, (keep, R)
 
 
 def phase11_merge_timing(name, store, R):
@@ -2024,19 +2053,405 @@ def phase11_merge_timing(name, store, R):
 
 def phase11(smi, name, R, S, rows, o_s, o_i, singles, single_s, reset_counts):
     """Phase 11 (see the module docstring).  Returns (topk_merge launches
-    of the main-path runs, the largest topk_merge |Δ|)."""
+    of the main-path runs, the largest topk_merge |Δ|, the 4-shard IIB
+    store at synthetic-10k, (the yeast-worm BF store, its R)): phase 12
+    saves, serves and recovers the stores."""
     t0 = time.perf_counter()
     launches = phase11_equal_blocks(R, S, reset_counts)
     n, iib_store = phase11_config_blocks(smi, R, S, rows, o_s, o_i, singles, single_s,
                                          reset_counts)
     launches += n
     err = phase11_merge_timing(name, iib_store, R)
-    del iib_store
     launches += phase11_replicas(smi, R, S, reset_counts)
-    launches += phase11_yeast(smi, reset_counts)
+    n, yeast = phase11_yeast(smi, reset_counts)
+    launches += n
     print(f"phase 11: {time.perf_counter() - t0:.1f} s, topk_merge launches on its main-path "
           f"runs {launches}")
-    return launches, err
+    return launches, err, iib_store, yeast
+
+
+# phase 12: the store's checkpoints and the serving front-end.  (a) durability
+# at synthetic-10k (not cut) for IIB (phase 11's store) and IIIB; (b) at
+# yeast-worm's S (phase 11's BF store, R one block); (c) a KNNScheduler over
+# the 4-shard IIB store serving all 10,000 R rows as seeded requests of 1–64
+# rows with k drawn from 1–5, submitted at once; (d) the same stream through
+# a shard loss, under both policies.  Checkpoints go to a temporary
+# directory on the machine's disk, removed at the end.
+CKPT_ADD = 2000                # rows added before the save, CKPT_TTL of them with a TTL
+CKPT_TTL = 256
+CKPT_DELETE = 500
+CKPT_DIRTY_ADD = 64            # the add that lands on one shard before save_dirty
+SERVE_ROWS = (1, 64)           # request sizes, inclusive
+SERVE_WINDOW_S = 0.002
+
+
+def step_bytes(step_dir, prev_dir=None):
+    """(bytes written, bytes hard-linked from ``prev_dir``, the linked
+    leaves' paths) of one committed checkpoint step, counted by inode."""
+    with open(os.path.join(step_dir, "manifest.json")) as f:
+        leaves = json.load(f)["leaves"]
+    prev = set()
+    if prev_dir is not None:
+        prev = {os.stat(os.path.join(prev_dir, n)).st_ino for n in os.listdir(prev_dir)}
+    written = os.path.getsize(os.path.join(step_dir, "manifest.json"))
+    linked, paths = 0, set()
+    for e in leaves:
+        st = os.stat(os.path.join(step_dir, e["file"]))
+        if st.st_ino in prev:
+            linked += st.st_size
+            paths.add(e["path"])
+        else:
+            written += st.st_size
+    return written, linked, paths
+
+
+def same_bits(a, b):
+    return torch.equal(a.scores, b.scores) and torch.equal(a.ids, b.ids)
+
+
+def serve_waves(store, waves, cfg, profile=None, between=None):
+    """Serve each wave of (requests, ks), all submitted at once, through one
+    KNNScheduler; ``between`` is awaited after each wave but the last.
+    Returns ([(answers, seconds)] a wave, [(request ids, assembled batch)],
+    the scheduler's own _assemble, its metrics)."""
+    import asyncio
+
+    from repro_torch.serve import KNNScheduler
+
+    seen, out = [], []
+
+    async def main():
+        async with KNNScheduler(store, cfg, profile=profile) as sched:
+            real = sched._assemble
+
+            def assemble(pending):
+                batch = real(pending)
+                seen.append(([p.rid for p in pending], batch))
+                return batch
+
+            sched._assemble = assemble
+            for w, (reqs, ks) in enumerate(waves):
+                t0 = time.perf_counter()
+                answers = await asyncio.gather(*[sched.submit(q, k=k) for q, k in zip(reqs, ks)])
+                out.append((answers, time.perf_counter() - t0))
+                if between is not None and w + 1 < len(waves):
+                    await between()
+            return real, sched.metrics
+
+    assemble, metrics = asyncio.run(main())
+    return out, seen, assemble, metrics
+
+
+def check_batch_bits(store, reqs, answers, seen, assemble, rid0):
+    """One served batch (the first whose requests all come from the wave at
+    ``rid0``), rebuilt with the scheduler's _assemble on the same requests
+    and queried directly: bit for bit the de-interleaved answers.  Returns
+    the batch's request count."""
+    import types
+
+    n_req = len(reqs)
+    rids, batch = next((r, b) for r, b in seen if r and rid0 <= r[0] and r[-1] < rid0 + n_req)
+    pending = [types.SimpleNamespace(idx=reqs[r - rid0].indices.numpy(),
+                                     val=reqs[r - rid0].values.numpy(),
+                                     nnz=reqs[r - rid0].nnz.numpy()) for r in rids]
+    rebuilt = assemble(pending)
+    assert all(torch.equal(getattr(rebuilt, f), getattr(batch, f))
+               for f in ("indices", "values", "nnz"))
+    direct = store.query(rebuilt)
+    off = 0
+    for r in rids:
+        ids, scores = answers[r - rid0]
+        n, k = ids.shape
+        assert np.array_equal(ids, direct.ids[off:off + n, :k].cpu().numpy()), r
+        assert np.array_equal(scores, direct.scores[off:off + n, :k].cpu().numpy()), r
+        off += n
+    return len(rids)
+
+
+def check_against_direct(reqs, answers, direct):
+    """Each answer within tolerance of its rows of a direct query of all R
+    (ids equal outside tie groups).  Returns the largest |Δscore|."""
+    from repro_torch.testing import assert_topk_close
+
+    d_s, d_i = direct.scores.cpu().numpy(), direct.ids.cpu().numpy()
+    worst, off = 0.0, 0
+    for q, (ids, scores) in zip(reqs, answers):
+        n, k = ids.shape
+        worst = max(worst, assert_topk_close(scores, ids, d_s[off:off + n, :k],
+                                             d_i[off:off + n, :k], RTOL, ATOL))
+        off += q.num_vectors
+    return worst
+
+
+def serve_summary(m, wall):
+    s = m.summary()
+    return (f"{s['requests']['completed']} requests in {wall} s, latency p50 "
+            f"{s['latency']['p50_ms']:.2f} ms p99 {s['latency']['p99_ms']:.2f} ms, "
+            f"{s['throughput']['rows_per_s']:.0f} rows/s, batches {s['batches']['count']} "
+            f"(mean fill {s['batches']['mean_occupancy']:.3f}, mean wall "
+            f"{s['batches']['mean_wall_ms']:.2f} ms), failed {s['requests']['failed']}")
+
+
+def phase12_durability(smi, R, store, root, reset_counts):
+    """(a) one algorithm's durability at synthetic-10k.  Returns topk_merge
+    launches."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.kernels.topk_merge.kernel import topk_merge_cuda
+    from repro_torch.runtime.fault import corrupt_checkpoint_leaf
+    from repro_torch.sparse.datagen import synthetic_sparse
+    from repro_torch.store import ShardedKNNStore
+    from repro_torch.testing import assert_topk_close
+
+    alg = store.algorithm
+    d = os.path.join(root, f"synthetic_{alg}")
+    launches = 0
+
+    def query(st, rows=R, **kw):
+        nonlocal launches
+        res, secs, n = launches_of(topk_merge_cuda, lambda: st.query(rows, **kw), reset_counts)
+        launches += n
+        return res, secs
+
+    t0 = time.perf_counter()
+    store.add(synthetic_sparse(CKPT_ADD - CKPT_TTL, dim=DIM, nnz_mean=NNZ_MEAN, seed=31))
+    store.add(synthetic_sparse(CKPT_TTL, dim=DIM, nnz_mean=NNZ_MEAN, seed=32), ttl=10.0,
+              now=100.0)
+    store.delete(np.sort(np.random.default_rng(33).choice(N_S, CKPT_DELETE, replace=False)))
+    assert store.expire(now=120.0) == CKPT_TTL
+    torch.cuda.synchronize()
+    mut_s = time.perf_counter() - t0
+    path0, save_s = timed(lambda: store.save(d))
+    w0, _, _ = step_bytes(path0)
+    ref, ref_s = query(store)
+
+    loaded, load_s = timed(lambda: ShardedKNNStore.load(d))
+    builds = loaded.stats.index_builds
+    got, got_s = query(loaded)
+    assert same_bits(got, ref) and loaded.stats.index_builds == builds, alg
+    elastic, el_load_s = timed(lambda: ShardedKNNStore.load(d, num_shards=2))
+    el, _ = query(elastic)
+    el_err = assert_topk_close(el.scores.cpu(), el.ids.cpu(), ref.scores.cpu(), ref.ids.cpu(),
+                               RTOL, ATOL)
+    del loaded, elastic, el, got
+
+    target = int(np.argmin(store.shard_rows))
+    store.add(synthetic_sparse(CKPT_DIRTY_ADD, dim=DIM, nnz_mean=NNZ_MEAN, seed=34))
+    path1, dirty_s = timed(lambda: store.save_dirty(d))
+    w1, l1, linked = step_bytes(path1, path0)
+    clean = {f"['shard_{i:05d}']['{leaf}']" for i in range(store.n_shards) if i != target
+             for leaf in store._LEAVES} | ({"['rank']"} if alg == "iiib" else set())
+    assert linked == clean, sorted(linked ^ clean)
+    pre, _ = query(store)
+
+    lost_gids = store._gids[1].copy()
+    store.mark_lost(1)
+    partial, _ = query(store, allow_partial=True)
+    assert partial.missing_shards == (1,)
+    assert not np.isin(partial.ids.cpu().numpy(), lost_gids).any()
+    rec, rec_s = timed(lambda: store.recover(d))
+    assert rec == (1,) and store.lost_shards == ()
+    back, _ = query(store)
+    assert same_bits(back, pre), alg
+
+    with open(os.path.join(path1, "manifest.json")) as f:
+        leaves = [e["path"] for e in json.load(f)["leaves"]]
+    corrupt_checkpoint_leaf(d, leaf=leaves.index(f"['shard_{target:05d}']['idx']"))
+    assert ckpt.latest_step(d) == 0
+    store.mark_lost(target)
+    fb, fb_s = timed(lambda: store.recover(d))
+    assert fb == (target,)
+    rolled, _ = query(store)
+    assert same_bits(rolled, ref), alg          # the target shard's add rolled back
+    mb = 2.0 ** 20
+    print(f"phase 12 (a) {alg} synthetic-10k on {smi}: add {CKPT_ADD} ({CKPT_TTL} with a TTL), "
+          f"delete {CKPT_DELETE}, expire: {mut_s:.3f} s; save {save_s:.3f} s ({w0 / mb:.1f} MiB "
+          f"written, {w0 / mb / save_s:.0f} MiB/s); load at 4 shards {load_s:.3f} s "
+          f"({w0 / mb / load_s:.0f} MiB/s), query of {N_R} rows {got_s:.4f} s bit-identical "
+          f"to the saved store's ({ref_s:.4f} s), index builds frozen; elastic load at 2 shards "
+          f"{el_load_s:.3f} s, max|dscore|={el_err:.3e}; save_dirty after an add of "
+          f"{CKPT_DIRTY_ADD} rows to shard {target} {dirty_s:.3f} s ({w1 / mb:.2f} MiB written, "
+          f"{l1 / mb:.1f} MiB in {len(linked)} leaves hard-linked); mark_lost(1): allow_partial "
+          f"missing_shards {partial.missing_shards}, no id of shard 1; recover {rec_s:.3f} s "
+          f"bit-identical to the pre-loss query; leaf ['shard_{target:05d}']['idx'] of step 1 "
+          f"corrupted: latest_step 0, recover {fb_s:.3f} s, bit-identical to the step-0 query; "
+          f"topk_merge launches {launches}")
+    return launches
+
+
+def phase12_yeast(smi, store, R, root, reset_counts):
+    """(b) save, load, mark_lost and recover of the yeast-worm BF store
+    (S not cut), each queried with one R block.  Returns topk_merge
+    launches."""
+    from repro_torch.kernels.topk_merge.kernel import topk_merge_cuda
+    from repro_torch.store import ShardedKNNStore
+
+    d = os.path.join(root, "yeast_bf")
+    head = R.rows(0, BLOCK)
+    launches = 0
+
+    def query(st):
+        nonlocal launches
+        res, secs, n = launches_of(topk_merge_cuda, lambda: st.query(head), reset_counts)
+        launches += n
+        return res, secs
+
+    ref, ref_s = query(store)
+    path, save_s = timed(lambda: store.save(d))
+    written, _, _ = step_bytes(path)
+    loaded, load_s = timed(lambda: ShardedKNNStore.load(d))
+    got, got_s = query(loaded)
+    assert same_bits(got, ref)
+    del loaded, got
+    store.mark_lost(2)
+    rec, rec_s = timed(lambda: store.recover(d))
+    assert rec == (2,)
+    back, _ = query(store)
+    assert same_bits(back, ref)
+    shard_bytes = sum(os.path.getsize(os.path.join(path, n)) for n in os.listdir(path)) / 4
+    mb = 2.0 ** 20
+    print(f"phase 12 (b) yeast-worm bf on {smi}: S {store.num_vectors} rows in "
+          f"{store.n_shards} shards; save {save_s:.3f} s ({written / mb:.1f} MiB written, "
+          f"{written / mb / save_s:.0f} MiB/s); load {load_s:.3f} s ({written / mb / load_s:.0f} "
+          f"MiB/s), query of {BLOCK} rows {got_s:.4f} s bit-identical to the saved store's "
+          f"({ref_s:.4f} s); mark_lost(2) + recover {rec_s:.3f} s (a shard's ~"
+          f"{shard_bytes / mb:.1f} MiB read), bit-identical; topk_merge launches {launches}")
+    return launches
+
+
+def serve_stream(R, seed):
+    """All of R as requests of SERVE_ROWS rows in order, each with a k from
+    1 to K."""
+    rng = np.random.default_rng(seed)
+    reqs, ks, r0 = [], [], 0
+    while r0 < R.num_vectors:
+        n = int(rng.integers(SERVE_ROWS[0], SERVE_ROWS[1] + 1))
+        reqs.append(R.rows(r0, min(r0 + n, R.num_vectors)))
+        ks.append(int(rng.integers(1, K + 1)))
+        r0 += n
+    return reqs, ks
+
+
+def phase12_serving(smi, R, store, root, reset_counts):
+    """(c) serving, then (d) shard loss under traffic.  Returns topk_merge
+    launches."""
+    import asyncio
+
+    from repro_torch.kernels.topk_merge.kernel import topk_merge_cuda
+    from repro_torch.obs.profile import ProfileCapture
+    from repro_torch.runtime.fault import FaultPlan, FaultSpec
+    from repro_torch.serve import ServeConfig
+
+    reqs, ks = serve_stream(R, seed=35)
+    direct = store.query(R)
+    cfg = ServeConfig(r_block=BLOCK, window_s=SERVE_WINDOW_S)
+    launches = 0
+
+    # a warm run under ProfileCapture over its first 2 batches
+    cap = ProfileCapture(os.path.join(root, "profile"), n_batches=2)
+    serve_waves(store, [(reqs, ks)], cfg, profile=cap)
+    s = cap.summary()
+    assert s["error"] is None and s["done"] and s["batches"] == 2, s
+    with open(s["trace"]) as f:
+        kernels = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"]
+    n_merge = sum("topk_merge" in k for k in kernels)
+    assert n_merge > 0, sorted(set(kernels))[:20]
+
+    reset_counts()
+    builds = store.stats.index_builds
+    out, seen, assemble, m = serve_waves(store, [(reqs, ks)], cfg)
+    torch.cuda.synchronize()
+    launches += topk_merge_cuda.launches
+    (answers, wall), = out
+    assert m.failed == 0 and m.completed == len(reqs) and m.query_index_builds == 0
+    assert store.stats.index_builds == builds
+    err = check_against_direct(reqs, answers, direct)
+    n_batch = check_batch_bits(store, reqs, answers, seen, assemble, 0)
+    print(f"phase 12 (c) serving on {smi}: KNNScheduler over the {store.n_shards}-shard iib "
+          f"store, r_block {BLOCK}, window {SERVE_WINDOW_S * 1e3:.0f} ms, {N_R} R rows as "
+          f"{len(reqs)} requests of {SERVE_ROWS[0]}-{SERVE_ROWS[1]} rows, k 1-{K}, submitted at "
+          f"once: {serve_summary(m, f'{wall:.3f}')}, query_index_builds {m.query_index_builds}, "
+          f"topk_merge launches {topk_merge_cuda.launches}; vs the direct {N_R}-row query "
+          f"max|dscore|={err:.3e}; a batch of {n_batch} requests rebuilt with _assemble and "
+          f"queried directly: bit-identical; ProfileCapture over 2 batches: "
+          f"{len(kernels)} kernels in the trace, {n_merge} topk_merge")
+
+    # (d) shard loss under traffic, on a checkpoint saved first
+    d = os.path.join(root, "serve_iib")
+    store.save(d)
+    lost_gids = store._gids[1].copy()
+
+    async def recovered():
+        for _ in range(60_000):
+            if not store.lost_shards:
+                return
+            await asyncio.sleep(0.001)
+        raise AssertionError("recovery never completed")
+
+    for partial in (True, False):
+        pcfg = ServeConfig(r_block=BLOCK, window_s=SERVE_WINDOW_S, allow_partial=partial,
+                           recover=lambda: store.recover(d))
+        store.fault_plan = FaultPlan([FaultSpec("shard_error", shard=1, at_dispatch=0)])
+        reset_counts()
+        waves = [(reqs, ks)] * (2 if partial else 1)
+        out, seen, assemble, m = serve_waves(store, waves, pcfg, between=recovered)
+        torch.cuda.synchronize()
+        store.fault_plan = None
+        launches += topk_merge_cuda.launches
+        s = m.summary()
+        assert m.failed == 0 and m.recoveries == 1 and store.lost_shards == (), s["faults"]
+        first, _ = out[0]
+        if partial:
+            assert first[0].missing_shards == (1,)
+            degraded = [a for a in first if a.degraded]
+            assert all(a.missing_shards == (1,) for a in degraded)
+            assert not any(np.isin(a[0], lost_gids).any() for a in degraded)
+            full, full_wall = out[1]
+            assert not any(a.degraded for a in full)
+            err = check_against_direct(reqs, full, direct)
+            n_batch = check_batch_bits(store, reqs, full, seen, assemble, len(reqs))
+            what = (f"allow_partial: {len(degraded)} of {len(reqs)} answers of the first wave "
+                    f"degraded (missing_shards (1,), no id of shard 1), recovery in the "
+                    f"background; the second wave ({full_wall:.3f} s) all full, vs direct "
+                    f"max|dscore|={err:.3e}, a batch of {n_batch} requests bit-identical to "
+                    f"its assembled batch queried directly")
+        else:
+            assert not any(a.degraded for a in first)
+            err = check_against_direct(reqs, first, direct)
+            n_batch = check_batch_bits(store, reqs, first, seen, assemble, 0)
+            what = (f"queued behind recovery: every answer full, vs direct "
+                    f"max|dscore|={err:.3e}, a batch of {n_batch} requests bit-identical")
+        walls = " + ".join(f"{w:.3f}" for _, w in out)
+        print(f"phase 12 (d) shard_error on shard 1 at dispatch 0 on {smi}, {what}; "
+              f"recoveries {m.recoveries} in {s['faults']['recovery_s']:.3f} s, shard losses "
+              f"{m.shard_losses}, degraded {m.degraded}; over {len(out)} wave(s): "
+              f"{serve_summary(m, walls)}; topk_merge launches {topk_merge_cuda.launches}")
+    return launches
+
+
+def phase12(smi, R, S, iib_store, yeast, reset_counts):
+    """Phase 12 (see the module docstring).  Returns topk_merge launches of
+    its main-path runs."""
+    import tempfile
+
+    from repro_torch.core.engine import JoinSpec
+    from repro_torch.store import ShardedKNNStore
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        launches = phase12_serving(smi, R, iib_store, root, reset_counts)
+        launches += phase12_durability(smi, R, iib_store, root, reset_counts)
+        spec = JoinSpec(k=K, algorithm="iiib", r_block=BLOCK, s_block=BLOCK, tile=TILE)
+        iiib_store = ShardedKNNStore.build(S, spec, num_shards=STORE_SHARDS)
+        launches += phase12_durability(smi, R, iiib_store, root, reset_counts)
+        del iiib_store
+        launches += phase12_yeast(smi, *yeast, root, reset_counts)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s, topk_merge launches on its main-path "
+          f"runs {launches}")
+    return launches
 
 
 def main():
@@ -2384,8 +2799,13 @@ def main():
 
     # phase 11: the sharded store on one card (counts from 0 around each
     # main-path run)
-    store_merges, store_merge_err = phase11(smi, name, R, S, rows, o_s, o_i, driver_results,
-                                            driver_medians, reset_counts)
+    store_merges, store_merge_err, iib_store, yeast = phase11(
+        smi, name, R, S, rows, o_s, o_i, driver_results, driver_medians, reset_counts)
+
+    # phase 12: the store's checkpoints and the serving front-end (counts
+    # from 0 around each main-path run)
+    store_merges += phase12(smi, R, S, iib_store, yeast, reset_counts)
+    del iib_store, yeast
 
     print(json.dumps({"kernels": [
         {
@@ -2421,7 +2841,7 @@ def main():
             "source": "src/repro_torch/kernels/csrc/topk_merge.cu",
             "replaces": "src/repro/kernels/topk_merge/kernel.py:52",
             "launches": unfused_counts[1] + split_counts[1] + driver_merges
-            + life_launches["topk_merge"] + store_merges,
+            + life_launches["topk_merge"] + store_merges,   # phases 11 and 12
             "max_abs_err": max(merge_err, driver_merge_case[0], life_errs["topk_merge"],
                                store_merge_err),
             "ms": merge_ms,

@@ -7,9 +7,10 @@
              per-thread context stack (the engine's ``engine.r_block``).
   recorder — the flight recorder: a bounded ring of recent spans and
              fault events that dumps JSONL on demand and on fault.
-
-The reference's ``obs/profile.py`` (a ``jax.profiler`` capture and an
-HLO report) has no counterpart here yet.
+  profile  — opt-in `torch.profiler` capture around N scheduler batches,
+             and a measured report of one store query's device time by
+             kernel (the reference's HLO report has no counterpart: the
+             port compiles no program).
 """
 from repro_torch.obs.recorder import FlightRecorder, get_recorder, set_recorder
 from repro_torch.obs.registry import (
@@ -22,6 +23,7 @@ from repro_torch.obs.registry import (
     set_registry,
 )
 from repro_torch.obs.trace import Span, Tracer, default_tracer, set_tracing
+from repro_torch.obs.profile import ProfileCapture, fanout_report
 
 __all__ = [
     "Counter",
@@ -29,9 +31,11 @@ __all__ = [
     "Gauge",
     "Histogram",
     "MetricRegistry",
+    "ProfileCapture",
     "Span",
     "Tracer",
     "default_tracer",
+    "fanout_report",
     "get_recorder",
     "get_registry",
     "parse_exposition",

@@ -4,4 +4,5 @@ from repro_torch.runtime.fault import (  # noqa: F401
     RetryPolicy,
     ShardLostError,
     Supervisor,
+    corrupt_checkpoint_leaf,
 )

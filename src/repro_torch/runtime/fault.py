@@ -32,8 +32,8 @@ mitigations implemented here:
 The port's differences: ``guard_finite`` reads a tensor (or anything numpy
 takes) instead of a jax array, fault injections announce themselves to the
 port's flight recorder (``repro_torch.obs.recorder``), and the checkpoint
-corrupter ``corrupt_checkpoint_leaf`` is not here yet: it needs the
-checkpoint module, which comes with the store's durability.
+corrupter ``corrupt_checkpoint_leaf`` acts on the port's checkpoint
+module (``repro_torch.checkpoint.ckpt``).
 """
 from __future__ import annotations
 
@@ -158,9 +158,9 @@ class FaultSpec:
         elsewhere);
       * ``"replica_wedge"`` — sleep ``wedge_s`` on the first armed
         dispatch routed to ``replica`` (a straggling replica);
-      * ``"corrupt_leaf"`` — not dispatch-triggered; the checkpoint
-        corrupter that acts on it is not ported yet (kept here so a plan
-        can be described declaratively, as in the reference).
+      * ``"corrupt_leaf"`` — not dispatch-triggered; use
+        :func:`corrupt_checkpoint_leaf` directly (kept here so a plan can
+        be described declaratively).
     Each spec fires at most once.
     """
 
@@ -311,6 +311,37 @@ class ReplicaHealth:
         self._consecutive[r] = 0
         if self._state[r] == self.HALF_OPEN:
             self._state[r] = self.LIVE
+
+
+def corrupt_checkpoint_leaf(directory: str, step: Optional[int] = None,
+                            leaf: int = 0) -> str:
+    """Flip bytes in one committed leaf file (fault injection for restore
+    paths).  Returns the corrupted file's path.  ``step`` defaults to the
+    newest committed step; ``leaf`` indexes into the manifest order."""
+    import json
+    import os
+
+    from repro_torch.checkpoint import ckpt as _ckpt
+
+    if step is None:
+        step = _ckpt.latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no committed checkpoint in {directory}")
+    ckpt_dir = os.path.join(directory, f"step_{step:08d}")
+    with open(os.path.join(ckpt_dir, "manifest.json")) as f:
+        manifest = json.load(f)
+    fp = os.path.join(ckpt_dir, manifest["leaves"][leaf]["file"])
+    # Copy-on-write: incremental saves hard-link unchanged leaves across
+    # steps, and in-place writes would corrupt every step sharing the inode
+    # (defeating the fall-back-to-previous-step path under test).
+    with open(fp, "rb") as f:
+        data = bytearray(f.read())
+    mid = max(0, len(data) // 2)
+    data[mid:mid + 4] = b"\xde\xad\xbe\xef"
+    os.unlink(fp)
+    with open(fp, "wb") as f:
+        f.write(bytes(data))
+    return fp
 
 
 class _Watchdog:

@@ -64,15 +64,25 @@ IIIB's MinPruneScore evolves shard-locally (each shard's walk carries its
 own, from -inf): the work differs from one walk over all of S, the result
 does not.
 
-Not here yet: durability (``save``, ``save_dirty``, ``load``, ``recover``
-and the checkpoint module), the HLO hook ``lowered_fanout``, and the
-multi-device layout (``mesh=``/``axes=``); the constructor takes
-``num_shards``, ``replicas`` and ``device`` instead.  Entry points run on
-``device`` — CUDA unless the caller passes ``device="cpu"``.
+* **Durability** (DESIGN.md §9).  ``save(d)`` commits ONE logical copy
+  (each shard's host mirror, tombstone and TTL state, id stack, and the
+  frozen IIIB rank) through ``repro_torch.checkpoint`` as leaves whose
+  paths, order and bytes are the reference's, so either package loads
+  the other's checkpoints; ``save_dirty`` hard-links the shards untouched
+  since the last commit.  ``load(d)`` warm-restarts (elastically: any
+  shard count) and answers bit for bit the saved store; ``recover(d)``
+  rebuilds only the lost shards from their sha-verified slices.
+
+Not here yet: the HLO hook ``lowered_fanout`` (no HLO; see
+``obs/profile.py::fanout_report``) and the multi-device layout
+(``mesh=``/``axes=``); the constructor takes ``num_shards``, ``replicas``
+and ``device`` instead.  Entry points run on ``device`` — CUDA unless the
+caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
@@ -220,7 +230,21 @@ class ShardedKNNStore:
         device=None,
         mesh=None,
         axes: Optional[Sequence[str]] = None,
+        *,
+        _row_ids: Optional[np.ndarray] = None,
+        _alive: Optional[np.ndarray] = None,
+        _deadline: Optional[np.ndarray] = None,
+        _next_gid: Optional[int] = None,
+        _frozen_rank: Optional[np.ndarray] = None,
+        _shard_sizes: Optional[Sequence[int]] = None,
+        _lsh_cfg: Optional[dict] = None,
     ):
+        # The underscored keywords are the checkpoint-restore channel used
+        # by :meth:`load`: per-row state (global ids, tombstone masks, TTL
+        # deadlines, in concatenated shard order), the saved IIIB rank
+        # (restored verbatim — recomputing would break bit-parity after
+        # post-freeze mutations), and — when the loader's shard count
+        # matches the save — the exact saved row split.
         t0 = time.perf_counter()
         if mesh is not None or axes is not None:
             raise ValueError("mesh= and axes= are not supported by the port's "
@@ -265,10 +289,24 @@ class ShardedKNNStore:
         self.algorithm = spec.algorithm or p.algorithm
 
         # contiguous balanced row ranges (the first n_s % shards ranges get
-        # one extra row: np.array_split semantics)
-        sizes = [len(a) for a in np.array_split(np.arange(n_s), self.n_shards)]
+        # one extra row: np.array_split semantics); a restore onto the SAME
+        # shard count reuses the exact saved split so block geometry (and
+        # the dispatch shape) round-trips
+        restored_split = _shard_sizes is not None and len(_shard_sizes) == self.n_shards
+        if restored_split:
+            sizes = [int(x) for x in _shard_sizes]
+            if sum(sizes) != n_s:
+                raise ValueError("restored shard sizes do not cover S")
+        else:
+            sizes = [len(a) for a in np.array_split(np.arange(n_s), self.n_shards)]
         bounds = np.concatenate([[0], np.cumsum(sizes)])
-        self.s_block = max(1, min(spec.s_block or p.s_block, min(sizes)))
+        if restored_split and spec.s_block:
+            # the saved block size, even where a shard compacted below it
+            # holds fewer rows (one partial block): the reference re-blocks
+            # every shard at the smallest one's size there
+            self.s_block = int(spec.s_block)
+        else:
+            self.s_block = max(1, min(spec.s_block or p.s_block, min(sizes)))
 
         # IIIB superset order: the GLOBAL datastore's dim-frequency rank,
         # frozen into every shard (a shard-local rank would still be exact
@@ -276,21 +314,24 @@ class ShardedKNNStore:
         self._rank_np: Optional[np.ndarray] = None
         self._rank_dev: Optional[torch.Tensor] = None
         if self.algorithm == "iiib":
-            ok = idx < self.dim
-            freq = np.bincount(idx[ok], minlength=self.dim).astype(np.int64)
-            self._rank_np = iiib_mod.s_frequency_rank(freq)
+            if _frozen_rank is not None:
+                self._rank_np = np.asarray(_frozen_rank, np.int32)
+            else:
+                ok = idx < self.dim
+                freq = np.bincount(idx[ok], minlength=self.dim).astype(np.int64)
+                self._rank_np = iiib_mod.s_frequency_rank(freq)
             self._rank_dev = torch.as_tensor(self._rank_np, device=self.device)
 
         # approximate tier: ONE LSHConfig (and projection) shared by every
-        # shard and replica — identical band keys everywhere
+        # shard and replica — identical band keys everywhere.  A restored
+        # store takes the SAVED config (``_lsh_cfg``) so keys round-trip
+        # even if the planner changes between versions.
         self._lsh: Optional[lsh_mod.LSHBands] = None
         if spec.accuracy == "approx":
-            cfg = lsh_mod.plan_lsh(spec.target_recall, seed=spec.seed)
+            cfg = (lsh_mod.LSHConfig(**_lsh_cfg) if _lsh_cfg is not None
+                   else lsh_mod.plan_lsh(spec.target_recall, seed=spec.seed))
             self._lsh = lsh_mod.LSHBands(cfg, self.dim)
 
-        shard_spec = dataclasses.replace(
-            spec, algorithm=self.algorithm, s_block=self.s_block
-        )
         # per-shard engine indexes in streaming mode: host mirrors, block
         # metadata and tombstone bookkeeping — the device stacks are owned
         # by the store (assembled below, one tensor set per replica)
@@ -305,15 +346,23 @@ class ShardedKNNStore:
         self.fault_plan = None          # FaultPlan hook, consulted per dispatch
         for i in range(self.n_shards):
             lo, hi = int(bounds[i]), int(bounds[i + 1])
-            shard = SparseKNNIndex.build(
-                from_arrays(idx[lo:hi], val[lo:hi], nnz[lo:hi], self.dim), shard_spec,
-                cache_device_blocks=False, device=self.device, frozen_rank=self._rank_np,
-                calibration=self.calibration,
-                lsh_cfg=self._lsh.cfg if self._lsh is not None else None,
-            )
+            shard = self._build_shard(idx[lo:hi], val[lo:hi], nnz[lo:hi])
+            if _alive is not None:
+                shard._alive = np.asarray(_alive[lo:hi], bool).copy()
+            if _deadline is not None:
+                shard._deadline = np.asarray(_deadline[lo:hi], np.float64).copy()
             self.shards.append(shard)
-            self._gids.append(np.arange(lo, hi, dtype=np.int32))
-        self._next_gid = n_s
+            if _row_ids is not None:
+                self._gids.append(np.asarray(_row_ids[lo:hi], np.int32).copy())
+            else:
+                self._gids.append(np.arange(lo, hi, dtype=np.int32))
+        self._next_gid = n_s if _next_gid is None else int(_next_gid)
+
+        # durability bookkeeping: which shards diverge from the last commit
+        # (a fresh build has never been committed — everything is dirty)
+        self._dirty: Set[int] = set(range(self.n_shards))
+        self._dirty_rank = True
+        self._last_save_dir: Optional[str] = None
 
         self._shard_arrays: List[Dict[str, np.ndarray]] = [
             self._assemble_shard(i) for i in range(self.n_shards)
@@ -324,6 +373,25 @@ class ShardedKNNStore:
         self._host_geometry: Optional[tuple] = None
         self._upload_stacks()
         self.stats.build_wall_s += time.perf_counter() - t0
+
+    def _build_shard(self, idx: np.ndarray, val: np.ndarray, nnz: np.ndarray) -> SparseKNNIndex:
+        """One shard's engine index (streaming mode: host mirrors and block
+        metadata) over the given rows, in the store's plan, block size,
+        IIIB rank and LSH config.  The engine clamps its block size to its
+        row count, so a shard that compacted below the store's block size
+        (rebuilt by :meth:`recover` or :meth:`load`) is re-blocked at the
+        store's: one partial block, as compaction leaves it — the stacks
+        need every shard in one geometry."""
+        spec = dataclasses.replace(self.spec, algorithm=self.algorithm, s_block=self.s_block)
+        shard = SparseKNNIndex.build(
+            from_arrays(idx, val, nnz, self.dim), spec, cache_device_blocks=False,
+            device=self.device, frozen_rank=self._rank_np, calibration=self.calibration,
+            lsh_cfg=self._lsh.cfg if self._lsh is not None else None,
+        )
+        if shard.s_block != self.s_block:
+            shard.s_block = self.s_block
+            shard._build_blocks(from_block=0)
+        return shard
 
     # -- introspection -------------------------------------------------------
 
@@ -979,6 +1047,7 @@ class ShardedKNNStore:
         gids = np.arange(self._next_gid, self._next_gid + n_new, dtype=np.int32)
         self._gids[tgt] = np.concatenate([self._gids[tgt], gids])
         self._next_gid += n_new
+        self._dirty.add(tgt)
         self._shard_arrays[tgt] = self._assemble_shard(tgt, from_block=from_block)
         self._upload_stacks(shards={tgt})
         self.stats.build_wall_s += time.perf_counter() - t0
@@ -998,6 +1067,7 @@ class ShardedKNNStore:
                 newly += n
         if newly:
             self.stats.deleted += newly
+            self._dirty |= touched
             self._fold_tombstones(touched)
         return newly
 
@@ -1012,6 +1082,7 @@ class ShardedKNNStore:
             newly += n
         if newly:
             self.stats.expired += newly
+            self._dirty |= touched
             self._fold_tombstones(touched)
         return newly
 
@@ -1057,6 +1128,7 @@ class ShardedKNNStore:
             # placeholder row a fully-dead shard keeps)
             self._gids[i] = self._gids[i][shard.last_compact_keep]
             changed.append(i)
+            self._dirty.add(i)
             self._shard_arrays[i] = self._assemble_shard(i)
         if changed:
             self.stats.compactions += len(changed)
@@ -1080,12 +1152,182 @@ class ShardedKNNStore:
             freq += np.bincount(shard._idx[ok], minlength=self.dim)
         self._rank_np = iiib_mod.s_frequency_rank(freq)
         self._rank_dev = torch.as_tensor(self._rank_np, device=self.device)
+        self._dirty_rank = True
         for i, shard in enumerate(self.shards):
             shard.refreeze(frozen_rank=self._rank_np)
+            self._dirty.add(i)
             self._shard_arrays[i] = self._assemble_shard(i)
         self._upload_stacks()
         self.stats.build_wall_s += time.perf_counter() - t0
         return self
+
+    # -- durability (DESIGN.md §9) -------------------------------------------
+
+    _LEAVES = ("idx", "val", "nnz", "alive", "deadline", "gids")
+
+    def _shard_key(self, i: int) -> str:
+        return f"shard_{i:05d}"
+
+    def _ckpt_tree(self) -> dict:
+        """The persisted state: per-shard host mirrors (rows exactly as the
+        engine holds them, tombstones included), tombstone/TTL masks, the
+        global-id stacks, and the frozen IIIB rank.  ONE logical copy —
+        replicas are a placement property, not data (device stacks, tile
+        indexes and planner statistics are pure functions of this tree and
+        rebuild / fan out on load)."""
+        tree = {}
+        for i, shard in enumerate(self.shards):
+            tree[self._shard_key(i)] = {
+                "idx": shard._idx.astype(np.int32),
+                "val": shard._val.astype(np.float32),
+                "nnz": shard._nnz.astype(np.int32),
+                "alive": shard._alive,
+                "deadline": shard._deadline,
+                "gids": self._gids[i].astype(np.int32),
+            }
+        if self._rank_np is not None:
+            tree["rank"] = self._rank_np
+        return tree
+
+    def _meta(self) -> dict:
+        return {
+            "spec": dataclasses.asdict(self.spec),
+            "algorithm": self.algorithm,
+            "s_block": self.s_block,
+            "dim": self.dim,
+            "n_shards": self.n_shards,
+            "shard_rows": [int(s.n_s) for s in self.shards],
+            "next_gid": int(self._next_gid),
+            "auto_compact": self.auto_compact,
+            # band-index config persists like the frozen IIIB rank: the
+            # saved parameters win on restore, so keys round-trip
+            "lsh": (dataclasses.asdict(self._lsh.cfg)
+                    if self._lsh is not None else None),
+        }
+
+    def save(self, directory: str, extra: Optional[dict] = None,
+             dirty_only: bool = False) -> str:
+        """Commit the store to ``directory`` as a new checkpoint step
+        (atomic two-phase commit via ``repro_torch.checkpoint``).  Returns
+        the committed path.  ``extra`` rides along in the manifest.
+
+        ``dirty_only`` (what :meth:`save_dirty` passes) hard-links every
+        shard untouched since the last commit from that commit's dir
+        instead of re-serializing it — an incremental save costs O(dirty
+        shards) writes, not O(store).
+        """
+        from repro_torch.checkpoint import ckpt as _ckpt
+
+        t0 = time.perf_counter()
+        with obs_trace.span("ckpt.save", dirty_only=dirty_only):
+            ls = _ckpt.latest_step(directory)
+            step = 0 if ls is None else ls + 1
+            link_from = link_paths = None
+            if dirty_only and self._last_save_dir is not None:
+                link_paths = {
+                    f"['{self._shard_key(i)}']['{leaf}']"
+                    for i in range(self.n_shards) if i not in self._dirty
+                    for leaf in self._LEAVES
+                }
+                if self._rank_np is not None and not self._dirty_rank:
+                    link_paths.add("['rank']")
+                link_from = self._last_save_dir
+            path = _ckpt.save(
+                directory, step, self._ckpt_tree(),
+                extra={"store": self._meta(), **(extra or {})},
+                link_from=link_from, link_paths=link_paths,
+            )
+            self._dirty.clear()
+            self._dirty_rank = False
+            self._last_save_dir = path
+            self.stats.saves += 1
+            self.stats.save_wall_s += time.perf_counter() - t0
+        return path
+
+    def save_dirty(self, directory: str, extra: Optional[dict] = None) -> str:
+        """Incremental :meth:`save`: only shards touched by add/delete/
+        expire/compact/refreeze since the last commit are re-serialized."""
+        return self.save(directory, extra=extra, dirty_only=True)
+
+    @classmethod
+    def load(
+        cls,
+        directory: str,
+        num_shards: Optional[int] = None,
+        step: Optional[int] = None,
+        calibration=None,
+        replicas: int = 1,
+        replica_fail_threshold: int = 2,
+        device=None,
+        mesh=None,
+        axes: Optional[Sequence[str]] = None,
+    ) -> "ShardedKNNStore":
+        """Warm-restart a saved store: host mirrors, spec, frozen IIIB
+        rank, id stacks and tombstone state come from the newest valid
+        checkpoint (``step`` pins one); device stacks and tile indexes are
+        rebuilt on ``device``, re-split into ``num_shards`` (default: the
+        saved count).  ``replicas=`` fans the single persisted logical copy
+        out — replication is a placement property, so a save from an
+        unreplicated store restores replicated (and vice versa) without any
+        on-disk difference.  At the saved shard count, queries after load
+        are bit-identical to the saved store; a re-split keeps the
+        concatenated row order (the tie-winning order) and answers within
+        float32 rounding (other blocks make products of other shapes).  The
+        manifest ``extra`` is exposed as ``store.loaded_extra``.
+        """
+        from repro_torch.checkpoint import ckpt as _ckpt
+
+        if step is None:
+            step = _ckpt.latest_step(directory)
+            if step is None:
+                raise FileNotFoundError(f"no valid checkpoint in {directory}")
+        _sp = obs_trace.start_span("ckpt.load", step=step)
+        arrays, extra = _ckpt.load_arrays(directory, step)
+        meta = extra["store"]
+        n_saved = int(meta["n_shards"])
+
+        def leaf(name: str) -> List[np.ndarray]:
+            return [arrays[f"['shard_{i:05d}']['{name}']"] for i in range(n_saved)]
+
+        # concatenate per-shard mirrors IN SHARD ORDER (this order is the
+        # id-tie-winning order; any contiguous re-split preserves it),
+        # padding the ragged feature axis to the widest shard
+        dim = int(meta["dim"])
+        f_max = max(a.shape[1] for a in leaf("idx"))
+        idxs, vals = zip(*(_pad_feature_axis(ii, vv, f_max, dim)
+                           for ii, vv in zip(leaf("idx"), leaf("val"))))
+        S = from_arrays(np.concatenate(idxs), np.concatenate(vals),
+                        np.concatenate(leaf("nnz")), dim)
+        spec = dataclasses.replace(
+            JoinSpec(**meta["spec"]),
+            algorithm=meta["algorithm"], s_block=int(meta["s_block"]),
+        )
+        store = cls(
+            S, spec, num_shards=n_saved if num_shards is None else num_shards,
+            auto_compact=float(meta["auto_compact"]), calibration=calibration,
+            replicas=replicas, replica_fail_threshold=replica_fail_threshold,
+            device=device, mesh=mesh, axes=axes,
+            _row_ids=np.concatenate(leaf("gids")),
+            _alive=np.concatenate(leaf("alive")),
+            _deadline=np.concatenate(leaf("deadline")),
+            _next_gid=int(meta["next_gid"]),
+            _frozen_rank=arrays.get("['rank']"),
+            _shard_sizes=[int(r) for r in meta["shard_rows"]],
+            _lsh_cfg=meta.get("lsh"),
+        )
+        # When the loaded layout matches the saved one, the in-memory state
+        # EQUALS the loaded commit: nothing is dirty, and incremental saves
+        # may hard-link from it.  An ELASTIC load (different shard count /
+        # split) re-partitioned the rows, so the saved per-shard leaves no
+        # longer correspond to this store's shards — everything stays dirty
+        # and the next save is a full one.
+        if [s.n_s for s in store.shards] == [int(r) for r in meta["shard_rows"]]:
+            store._dirty.clear()
+            store._dirty_rank = False
+            store._last_save_dir = os.path.join(directory, f"step_{step:08d}")
+        store.loaded_extra = {k: v for k, v in extra.items() if k != "store"}
+        obs_trace.end_span(_sp, n_shards=store.n_shards)
+        return store
 
     # -- shard loss ----------------------------------------------------------
 
@@ -1146,6 +1388,64 @@ class ShardedKNNStore:
 
     def mark_lost(self, i: int, replica: Optional[int] = None) -> None:
         self._mark_lost(i, replica=replica)
+
+    def recover(self, directory: str, step: Optional[int] = None) -> Tuple[int, ...]:
+        """Rebuild every GLOBALLY lost shard from its checkpoint slice and
+        rejoin it to the fan-out.  Reads ONLY the lost shards' leaves
+        (sha-verified); the surviving shards' state — including mutations
+        since the save — is untouched.  Mutations the lost shard took
+        after the checkpoint are gone (that is what 'lost' means); its
+        global ids are stable because the id stack is part of the slice.
+        Replica-LOCAL losses are not recovered here (resync_replicas
+        repairs them from the host mirror) — but the full re-placement at
+        the end refreshes every live replica.  Returns the recovered
+        shard indexes.
+        """
+        from repro_torch.checkpoint import ckpt as _ckpt
+
+        glost = set(self.lost_shards)
+        if not glost:
+            return ()
+        t0 = time.perf_counter()
+        _sp = obs_trace.start_span("recover", shards=sorted(glost))
+        if step is None:
+            step = _ckpt.latest_step(directory)
+            if step is None:
+                raise FileNotFoundError(f"no valid checkpoint in {directory}")
+        recovered = []
+        for i in sorted(glost):
+            key = self._shard_key(i)
+            arrays, extra = _ckpt.load_arrays(directory, step, prefix=f"['{key}']")
+            if int(extra["store"]["n_shards"]) != self.n_shards:
+                raise ValueError(
+                    "checkpoint shard layout does not match the live store "
+                    f"({extra['store']['n_shards']} vs {self.n_shards}); "
+                    "use ShardedKNNStore.load() for elastic restarts"
+                )
+            g = lambda name: arrays[f"['{key}']['{name}']"]
+            shard = self._build_shard(g("idx"), g("val"), g("nnz"))
+            shard._alive = np.asarray(g("alive"), bool).copy()
+            shard._deadline = np.asarray(g("deadline"), np.float64).copy()
+            self.shards[i] = shard
+            self._gids[i] = np.asarray(g("gids"), np.int32).copy()
+            recovered.append(i)
+        for r in range(self.n_replicas):
+            self._lost[r].difference_update(recovered)
+        for i in recovered:
+            # post-checkpoint mutations on the shard were lost with it, so
+            # its in-memory state matches the slice just read — but it may
+            # DIFFER from the latest commit if that commit is newer, so
+            # conservatively re-serialize it on the next incremental save
+            self._dirty.add(i)
+            self._shard_arrays[i] = self._assemble_shard(i)
+        self._upload_stacks()
+        self.stats.recoveries += len(recovered)
+        self.stats.recovery_wall_s += time.perf_counter() - t0
+        obs_trace.end_span(_sp, recovered=len(recovered))
+        obs_recorder.get_recorder().record(
+            "shard_recovered", shards=recovered,
+            wall_s=round(time.perf_counter() - t0, 4))
+        return tuple(recovered)
 
     # -- replica resync (DESIGN.md §10) --------------------------------------
 

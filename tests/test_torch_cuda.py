@@ -1064,3 +1064,164 @@ def test_store_failover_on_card(cuda):
     assert_topk_close(after.scores.cpu().numpy(), after.ids.cpu().numpy(), want.scores.numpy(),
                       want.ids.numpy(), RTOL, ATOL)
 
+
+
+@pytest.mark.parametrize("alg", DRIVERS)
+def test_store_save_load_recover_on_card(cuda, alg, tmp_path):
+    """The store's checkpoints on the card: after add (TTL), delete and
+    expire, save → load answers bit for bit the store before the save (and
+    its query-time index builds stay 0); mark_lost → recover rebuilds the
+    shard on the card, bit for bit again; save_dirty links the clean shards."""
+    import json
+    import os
+
+    from repro_torch.store import ShardedKNNStore
+
+    R, S = _store_data()
+    spec = JoinSpec(k=5, algorithm=alg, r_block=128, s_block=256)
+    store = ShardedKNNStore.build(S, spec, num_shards=4)
+    store.add(synthetic_sparse(40, dim=2000, nnz_mean=40, seed=9), ttl=5.0, now=0.0)
+    store.delete(np.arange(0, 1001, 13))
+    store.expire(now=10.0)
+    store.save(str(tmp_path))
+    want = store.query(R)
+    loaded = ShardedKNNStore.load(str(tmp_path))
+    assert loaded._stacks[0]["ids"].device.type == cuda.type
+    builds = loaded.stats.index_builds
+    got = loaded.query(R)
+    assert loaded.stats.index_builds == builds and got.stats.index_builds == 0
+    assert torch.equal(got.scores, want.scores) and torch.equal(got.ids, want.ids)
+    store.mark_lost(2)
+    lost = store.query(R, allow_partial=True)
+    assert lost.missing_shards == (2,)
+    assert store.recover(str(tmp_path)) == (2,) and store.lost_shards == ()
+    back = store.query(R)
+    assert torch.equal(back.scores, want.scores) and torch.equal(back.ids, want.ids)
+    store.save(str(tmp_path))                 # a full commit: every file its own
+    target = int(np.argmin(store.shard_rows))  # where the next add lands
+    store.add(synthetic_sparse(8, dim=2000, nnz_mean=40, seed=10))
+    path = store.save_dirty(str(tmp_path))
+    with open(os.path.join(path, "manifest.json")) as f:
+        leaves = json.load(f)["leaves"]
+    linked = {e["path"] for e in leaves if os.stat(os.path.join(path, e["file"])).st_nlink > 1}
+    want = {e["path"] for e in leaves if not e["path"].startswith(f"['shard_{target:05d}']")}
+    assert linked == want
+
+
+def test_store_loads_a_cpu_checkpoint_on_card(cuda, tmp_path):
+    """A checkpoint written by the CPU path loads on the card and answers
+    within tolerance of the CPU store (ids equal outside tie groups)."""
+    from repro_torch.store import ShardedKNNStore
+
+    R, S = _store_data()
+    spec = JoinSpec(k=5, algorithm="iiib", r_block=128, s_block=256)
+    cpu = ShardedKNNStore.build(S, spec, num_shards=4, device="cpu")
+    cpu.add(synthetic_sparse(40, dim=2000, nnz_mean=40, seed=9))
+    cpu.delete(np.arange(0, 1001, 11))
+    cpu.save(str(tmp_path))
+    want = cpu.query(R)
+    for shards in (4, 2):
+        card = ShardedKNNStore.load(str(tmp_path), num_shards=shards)
+        got = card.query(R)
+        assert got.scores.device.type == cuda.type
+        assert_topk_close(got.scores.cpu().numpy(), got.ids.cpu().numpy(), want.scores.numpy(),
+                          want.ids.numpy(), RTOL, ATOL)
+
+
+def _serve(store, reqs, ks, cfg, profile=None):
+    """Submit every request concurrently through a KNNScheduler; returns
+    (answers, [(request ids, assembled batch)], the scheduler's
+    _assemble, the metrics)."""
+    import asyncio
+
+    from repro_torch.serve import KNNScheduler
+
+    seen = []
+
+    async def main():
+        async with KNNScheduler(store, cfg, profile=profile) as sched:
+            real = sched._assemble
+
+            def assemble(pending):
+                batch = real(pending)
+                seen.append(([p.rid for p in pending], batch))
+                return batch
+
+            sched._assemble = assemble
+            outs = await asyncio.gather(*[sched.submit(q, k=k) for q, k in zip(reqs, ks)])
+            return outs, real, sched.metrics
+
+    outs, real, metrics = asyncio.run(main())
+    return outs, seen, real, metrics
+
+
+def test_scheduler_on_card_store(cuda):
+    """A KNNScheduler over a 4-shard store on the card: ragged requests with
+    per-request k, every answer bit for bit its rows of a direct query of
+    the same assembled batch (rebuilt with _assemble), within tolerance of
+    its rows alone; no failure, no query-time index build, the merges on
+    topk_merge_cuda."""
+    import types
+
+    from repro_torch.serve import ServeConfig
+    from repro_torch.store import ShardedKNNStore
+
+    R, S = _store_data()
+    store = ShardedKNNStore.build(S, JoinSpec(k=5, algorithm="iib", r_block=128, s_block=256),
+                                  num_shards=4)
+    rng = np.random.default_rng(3)
+    sizes = rng.integers(1, 17, size=40)
+    bounds = np.concatenate([[0], np.cumsum(sizes)])
+    bounds = bounds[bounds <= R.num_vectors]
+    reqs = [R.rows(int(a), int(b)) for a, b in zip(bounds[:-1], bounds[1:])]
+    ks = [int(k) for k in rng.integers(1, 6, size=len(reqs))]
+    before = topk_merge_cuda.launches
+    outs, seen, assemble, m = _serve(store, reqs, ks, ServeConfig(r_block=128, window_s=0.005))
+    assert topk_merge_cuda.launches > before
+    assert m.failed == 0 and m.completed == len(reqs) and m.query_index_builds == 0
+    for rids, batch in seen:
+        rebuilt = assemble([types.SimpleNamespace(idx=reqs[r].indices.numpy(),
+                                                  val=reqs[r].values.numpy(),
+                                                  nnz=reqs[r].nnz.numpy()) for r in rids])
+        assert rebuilt.indices.device.type == "cpu" and torch.equal(rebuilt.values, batch.values)
+        direct = store.query(rebuilt)
+        off = 0
+        for r in rids:
+            n, k = reqs[r].num_vectors, ks[r]
+            assert np.array_equal(outs[r][0], direct.ids[off:off + n, :k].cpu().numpy())
+            assert np.array_equal(outs[r][1], direct.scores[off:off + n, :k].cpu().numpy())
+            off += n
+    for q, k, (ids, scores) in zip(reqs, ks, outs):
+        alone = store.query(q)
+        assert_topk_close(scores, ids, alone.scores[:, :k].cpu().numpy(),
+                          alone.ids[:, :k].cpu().numpy(), RTOL, ATOL)
+
+
+def test_profile_capture_holds_topk_merge(cuda, tmp_path):
+    """ProfileCapture, armed by the scheduler on its event-loop thread,
+    traces the dispatch worker's kernels: the Chrome trace holds
+    topk_merge kernels; fanout_report counts them too."""
+    import json
+
+    from repro_torch.obs.profile import ProfileCapture, fanout_report
+    from repro_torch.serve import ServeConfig
+    from repro_torch.store import ShardedKNNStore
+
+    R, S = _store_data()
+    store = ShardedKNNStore.build(S, JoinSpec(k=5, algorithm="iib", r_block=128, s_block=256),
+                                  num_shards=4)
+    cap = ProfileCapture(str(tmp_path / "prof"), n_batches=2)
+    reqs = [R.rows(i, i + 64) for i in range(0, 256, 64)]
+    _, _, _, m = _serve(store, reqs, [5] * 4, ServeConfig(r_block=128, window_s=0.001),
+                        profile=cap)
+    assert m.failed == 0
+    s = cap.summary()
+    assert s["error"] is None and s["done"] and s["batches"] == 2
+    with open(s["trace"]) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    assert any("topk_merge" in n for n in names), sorted(set(names))[:20]
+    rep = fanout_report(store, R.rows(0, 128))
+    merges = sum(v["launches"] for k, v in rep["kernels"].items() if "topk_merge" in k)
+    assert merges == 4 * store._num_blocks_stacked + 3
+    assert rep["device_ms"] > 0 and rep["device"] == torch.cuda.get_device_name(0)
