@@ -159,7 +159,30 @@ and, through the entry points a user calls:
            Times, MiB written and hard-linked, MiB/s, ServeMetrics' p50/p99
            and rows/s, batches and mean fill, and topk_merge launches, each
            beside the card's name and power limit.  Checkpoints go to a
-           temporary directory, removed at the end.
+           temporary directory, removed at the end;
+  phase 13 the multi-device join and the job launcher: (a) the CLI
+           (launch/join_job.py::main) at synthetic-10k for bf, iib and
+           iiib (--repeat 3) and at yeast-worm widths (--spectra, R 2,048
+           x S 20,480 as phase 9 cuts them), each summary's mean_top1 and
+           counters bit for bit a direct SparseKNNIndex query of the same
+           data, then `python -m repro_torch.launch.join_job --ring` and
+           examples/torch_quickstart.py as processes of their own (exit 0,
+           a JSON line; the oracle match); (b) ShardedKNNStore over a mesh
+           of cuda:0 four times (launch/mesh.py::make_store_mesh), bit for
+           bit phase 11's num_shards=4 store with every JoinStats and
+           StoreStats counter equal, for bf, iib and iiib at synthetic-10k
+           and for bf at yeast-worm's full S (one R block of 2,048), and a
+           (2, 2) ('replica', 'shard') mesh through a replica_error
+           failover, resync and the half-open probe, bit for bit the
+           num_shards=2 x replicas=2 store; (c) the ring join at
+           synthetic-10k on a (4, 2) ('data', 'model') mesh of cuda:0:
+           _ring_join_impl for bf, iib and iiib (16 ring steps, each a
+           topk_merge launch), ring_knn_join with dim_axis='model' for bf
+           and iib, and distributed_join's store route (iiib), each against
+           phase 9's single index and, at R 300 x S 600 (dim 2,000),
+           against its own CPU path (a mesh of CPU entries); times and
+           topk_merge launches printed; (d) where the machine has more
+           than one card, (b) and (c) again over distinct cards.
 
 Every flash_attn and wkv comparison goes through repro_torch.testing
 (flash_close, wkv_close: one tolerance table with the card tests) and
@@ -1720,6 +1743,12 @@ def store_query_counted(store, R, reset_counts, **kw):
     return res, secs, stats, merges
 
 
+def store_counts(store):
+    """The store's StoreStats counters, by name."""
+    return {f: getattr(store.stats, f) for f in store.stats._COUNTERS
+            if not f.endswith("wall_s")}
+
+
 def phase11_equal_blocks(R, S, reset_counts):
     """(a) at s_block 500: the 4-shard store and one index, bit for bit.
     Returns the store queries' topk_merge launches."""
@@ -1747,12 +1776,13 @@ def phase11_equal_blocks(R, S, reset_counts):
 def phase11_config_blocks(smi, R, S, rows, o_s, o_i, singles, single_s, reset_counts):
     """(a) at the config's s_block: build, QUERIES queries, the counts, the
     times beside phase 9's single index, and the checks.  Returns (topk_merge
-    launches, the iib store)."""
+    launches, the iib store, {algorithm: (its last query, that query's
+    JoinStats, the store's StoreStats after its build)})."""
     from repro_torch.core.engine import JoinSpec
     from repro_torch.store import ShardedKNNStore
     from repro_torch.testing import assert_topk_close
 
-    launches, keep = 0, None
+    launches, keep, kept = 0, None, {}
     for alg in DRIVERS:
         spec = JoinSpec(k=K, algorithm=alg, r_block=BLOCK, s_block=BLOCK, tile=TILE)
         torch.cuda.empty_cache()
@@ -1761,6 +1791,7 @@ def phase11_config_blocks(smi, R, S, rows, o_s, o_i, singles, single_s, reset_co
         store, build_s = timed(lambda: ShardedKNNStore.build(S, spec, num_shards=STORE_SHARDS))
         held, peak = device_bytes() - before, torch.cuda.max_memory_allocated()
         builds = store.stats.index_builds
+        built = store_counts(store)
         assert builds == (0 if alg == "bf" else store.num_blocks), builds
         results, times = [], []
         for _ in range(QUERIES):
@@ -1793,8 +1824,9 @@ def phase11_config_blocks(smi, R, S, rows, o_s, o_i, singles, single_s, reset_co
                   f"{np.round(stats.min_prune_trace[0], 6).tolist()}")
         if alg == "iib":
             keep = store
+        kept[alg] = (last, stats, built)
         del store, results
-    return launches, keep
+    return launches, keep, kept
 
 
 def live_rows_batch(store):
@@ -1844,8 +1876,8 @@ def phase11_replicas(smi, R, S, reset_counts):
     store, build_s = timed(lambda: ShardedKNNStore.build(S, spec, num_shards=STORE_SHARDS,
                                                          replicas=2))
     held = device_bytes() - before
-    own = all(store._stacks[0][k].data_ptr() != store._stacks[1][k].data_ptr()
-              for k in store._stacks[0])
+    own = all(a.data_ptr() != b.data_ptr()
+              for k in store._stacks[0] for a, b in zip(store._stacks[0][k], store._stacks[1][k]))
     assert own and store.verify_replicas()
     clean, _, _, n = store_query_counted(store, R, reset_counts)
     launches += n
@@ -2054,12 +2086,13 @@ def phase11_merge_timing(name, store, R):
 def phase11(smi, name, R, S, rows, o_s, o_i, singles, single_s, reset_counts):
     """Phase 11 (see the module docstring).  Returns (topk_merge launches
     of the main-path runs, the largest topk_merge |Δ|, the 4-shard IIB
-    store at synthetic-10k, (the yeast-worm BF store, its R)): phase 12
-    saves, serves and recovers the stores."""
+    store at synthetic-10k, (the yeast-worm BF store, its R), each
+    algorithm's 4-shard query at synthetic-10k): phase 12 saves, serves
+    and recovers the stores; phase 13 holds its mesh stores to them."""
     t0 = time.perf_counter()
     launches = phase11_equal_blocks(R, S, reset_counts)
-    n, iib_store = phase11_config_blocks(smi, R, S, rows, o_s, o_i, singles, single_s,
-                                         reset_counts)
+    n, iib_store, queries = phase11_config_blocks(smi, R, S, rows, o_s, o_i, singles, single_s,
+                                                  reset_counts)
     launches += n
     err = phase11_merge_timing(name, iib_store, R)
     launches += phase11_replicas(smi, R, S, reset_counts)
@@ -2067,7 +2100,7 @@ def phase11(smi, name, R, S, rows, o_s, o_i, singles, single_s, reset_counts):
     launches += n
     print(f"phase 11: {time.perf_counter() - t0:.1f} s, topk_merge launches on its main-path "
           f"runs {launches}")
-    return launches, err, iib_store, yeast
+    return launches, err, iib_store, yeast, queries
 
 
 # phase 12: the store's checkpoints and the serving front-end.  (a) durability
@@ -2454,6 +2487,249 @@ def phase12(smi, R, S, iib_store, yeast, reset_counts):
     return launches
 
 
+# phase 13: the multi-device join and the job launcher, through the entry
+# points a user calls.  (a) the CLI (launch/join_job.py) at synthetic-10k
+# for each driver (--repeat 3) and at yeast-worm widths (--spectra; R and S
+# cut to 2,048 x 20,480 as in phase 9), each summary bit for bit a direct
+# SparseKNNIndex query of the same data; ``python -m
+# repro_torch.launch.join_job`` and examples/torch_quickstart.py as
+# subprocesses.  (b) ShardedKNNStore over a mesh of RING entries of one card,
+# bit for bit phase 11's num_shards=4 store (synthetic-10k: bf, iib, iiib;
+# yeast-worm's full S: bf, one R block of 2,048), and a (2, 2) replica mesh
+# through a failover.  (c) the ring join at synthetic-10k on a (RING, 2)
+# ('data', 'model') mesh: the ring driver for each driver, dim_axis='model'
+# for bf and iib, distributed_join's store route; each against phase 9's
+# single index, and against its CPU path at RING_SMALL.  (d) (b) and (c)
+# again over distinct cards where the machine has more than one.
+RING = 4                                  # ring positions and mesh store shards
+RING_SMALL = (300, 600, 2000, 40)         # n_r, n_s, dim, nnz of the CPU-path check
+JOIN_FIELDS = ("blocks", "tiles_scored", "list_entries", "dense_pairs", "index_builds",
+               "device_dispatches", "host_syncs", "candidate_rows", "scanned_rows")
+
+
+def run_cli(argv):
+    """``join_job.main(argv)`` in this process: its JSON summary."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import join_job
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert join_job.main(argv) == 0
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def join_counts(stats):
+    """A JoinStats' counters and IIIB threshold trace, comparable with ==."""
+    return ({f: getattr(stats, f) for f in JOIN_FIELDS},
+            [np.asarray(t).tolist() for t in stats.min_prune_trace])
+
+
+def phase13_cli(smi, root, dev, R, S, singles, reset_counts):
+    """(a) Returns topk_merge launches of the CLI's in-process runs."""
+    from repro_torch.core.engine import JoinSpec, SparseKNNIndex
+    from repro_torch.kernels.topk_merge.kernel import topk_merge_cuda
+    from repro_torch.sparse.datagen import spectra_like
+
+    n_r, n_s, dim, peaks_mean = SPECTRA
+    sR = spectra_like(n_r, dim=dim, peaks_mean=peaks_mean, seed=0)
+    sS = spectra_like(n_s, dim=dim, peaks_mean=peaks_mean, seed=1)
+    blocks = ["--r-block", str(BLOCK), "--s-block", str(BLOCK), "--k", str(K)]
+    base = ["--nr", str(N_R), "--ns", str(N_S), "--dim", str(DIM), "--nnz", str(NNZ_MEAN),
+            "--repeat", "3"] + blocks
+    spectra = ["--spectra", "--nr", str(n_r), "--ns", str(n_s), "--dim", str(dim)] + blocks
+    cases = ([(alg, "synthetic-10k", base, 3, R, S) for alg in DRIVERS]
+             + [(alg, f"spectra {n_r} x {n_s}", spectra, 1, sR, sS) for alg in DRIVERS])
+    launches = 0
+    for alg, data, argv, repeat, R_, S_ in cases:
+        out, secs, merges = launches_of(topk_merge_cuda,
+                                        lambda: run_cli(argv + ["--algorithm", alg]), reset_counts)
+        launches += merges
+        index = SparseKNNIndex.build(S_, JoinSpec(k=K, algorithm=alg, r_block=BLOCK,
+                                                  s_block=BLOCK, tile=TILE))
+        direct = index.query(R_)
+        mean = float(direct.scores[:, 0].cpu().numpy().mean())
+        r_blocks, s_blocks = -(-R_.num_vectors // BLOCK), -(-S_.num_vectors // BLOCK)
+        assert out["mean_top1"] == mean, (alg, data, out["mean_top1"], mean)
+        assert out["s_blocks"] == index.num_blocks == s_blocks, (out, index.num_blocks)
+        assert out["index_builds"] == index.stats.index_builds, (out, index.stats.index_builds)
+        assert merges == repeat * r_blocks * s_blocks, (alg, data, merges)
+        if data == "synthetic-10k":
+            assert torch.equal(direct.scores, singles[alg].scores), alg
+            assert torch.equal(direct.ids, singles[alg].ids), alg
+        print(f"phase 13 (a) join_job {alg} {data} on {smi}: build {out['build_s']} s, queries "
+              f"{out['query_s']} s, wall {out['wall_s']} s (data generation included: "
+              f"{secs:.2f} s in all), s_blocks {out['s_blocks']} index_builds "
+              f"{out['index_builds']}, mean_top1 {out['mean_top1']!r} bit for bit a direct "
+              f"SparseKNNIndex query's, topk_merge launches {merges}")
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    for label, cmd in (
+            ("python -m repro_torch.launch.join_job --ring",
+             [sys.executable, "-m", "repro_torch.launch.join_job", "--nr", str(BLOCK), "--ns",
+              str(N_S), "--dim", str(DIM), "--algorithm", "iib", "--ring", "--data-par",
+              str(torch.cuda.device_count()), "--device", dev.type]),
+            ("examples/torch_quickstart.py",
+             [sys.executable, os.path.join(root, "examples", "torch_quickstart.py"), "--device",
+              dev.type])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env, cwd=root)
+        assert proc.returncode == 0, (label, proc.stdout[-2000:], proc.stderr[-4000:])
+        last = proc.stdout.strip().splitlines()[-1]
+        if label.startswith("python -m"):
+            assert set(json.loads(last)) >= {"mean_top1", "shards", "index_builds"}, last
+        else:
+            assert last == "matches dense oracle: True", last
+        print(f"phase 13 (a) {label}: exit 0 in {time.perf_counter() - t0:.1f} s (a process "
+              f"of its own), last line {last}")
+    del sR, sS
+    return launches
+
+
+def phase13_store(smi, label, devs, R, S, store_queries, yeast, reset_counts):
+    """(b) the store over a mesh of ``devs`` (RING entries).  Returns
+    topk_merge launches."""
+    from repro_torch.core.engine import JoinSpec
+    from repro_torch.launch.mesh import make_store_mesh
+    from repro_torch.runtime.fault import FaultPlan, FaultSpec
+    from repro_torch.store import ShardedKNNStore
+
+    launches = 0
+    mesh = make_store_mesh(RING, devices=devs)
+    for alg in DRIVERS:
+        spec = JoinSpec(k=K, algorithm=alg, r_block=BLOCK, s_block=BLOCK, tile=TILE)
+        store, build_s = timed(lambda: ShardedKNNStore.build(S, spec, mesh=mesh))
+        want, want_stats, want_built = store_queries[alg]
+        assert store_counts(store) == want_built, (store_counts(store), want_built)
+        res, secs, stats, merges = store_query_counted(store, R, reset_counts)
+        launches += merges
+        assert join_counts(stats) == join_counts(want_stats), alg
+        same = torch.equal(res.scores, want.scores) and torch.equal(res.ids, want.ids)
+        assert same, alg
+        print(f"phase 13 (b) {alg} store over the mesh {label} on {smi}: build {build_s:.3f} s, "
+              f"query {secs:.4f} s, bit for bit phase 11's num_shards={RING} store with every "
+              f"JoinStats and StoreStats counter equal, topk_merge launches {merges}")
+        del store, res
+    ystore, yR = yeast
+    head = yR.rows(0, BLOCK)
+    want = ystore.query(head)
+    S_y, _ = live_rows_batch(ystore)
+    store, build_s = timed(lambda: ShardedKNNStore.build(S_y, ystore.spec, mesh=mesh))
+    res, secs, _, merges = store_query_counted(store, head, reset_counts)
+    launches += merges
+    assert torch.equal(res.scores, want.scores) and torch.equal(res.ids, want.ids)
+    print(f"phase 13 (b) bf yeast-worm S ({S_y.num_vectors} rows) over the mesh {label}: build "
+          f"{build_s:.3f} s, query of one R block of {BLOCK} {secs:.4f} s, bit for bit phase "
+          f"11's store, topk_merge launches {merges}")
+    del store, res, S_y
+
+    spec = JoinSpec(k=K, algorithm="iib", r_block=BLOCK, s_block=BLOCK, tile=TILE)
+    flat = ShardedKNNStore.build(S, spec, num_shards=2, replicas=2,
+                                 device=devs[0]).query(R)
+    store = ShardedKNNStore.build(S, spec, mesh=make_store_mesh(2, replicas=2, devices=devs))
+    store.fault_plan = FaultPlan([FaultSpec("replica_error", replica=1, at_dispatch=1)])
+    killed, kill_s, _, merges = store_query_counted(store, R, reset_counts)
+    store.fault_plan = None
+    launches += merges
+    assert torch.equal(killed.scores, flat.scores) and torch.equal(killed.ids, flat.ids)
+    assert store.stats.replica_failovers == 1 and store.dead_replicas == (1,)
+    assert store.resync_replicas() == (1,) and store.verify_replicas()
+    probe, _, _, merges = store_query_counted(store, R, reset_counts)
+    launches += merges
+    assert torch.equal(probe.scores, flat.scores) and store.dead_replicas == ()
+    print(f"phase 13 (b) iib over the (2, 2) replica mesh {label}: a replica_error mid-query "
+          f"failed over ({kill_s:.4f} s) bit for bit the num_shards=2 x replicas=2 store's "
+          f"query, resync and verify_replicas, the half-open probe bit for bit; replica "
+          f"dispatches {store.stats.replica_dispatches}")
+    del store, flat, killed, probe
+    return launches
+
+
+def ring_runs(mesh, R, S):
+    """(R's real rows, [(label, algorithm, fn)]): the runs of (c) on ``mesh``."""
+    from repro_torch.core.engine import JoinSpec, distributed_join
+    from repro_torch.core.ring import _ring_join_impl, pad_to_ring, ring_knn_join
+
+    Rp, nr = pad_to_ring(R, RING)
+    Sp, ns = pad_to_ring(S, RING)
+    kw = dict(n_r_valid=nr, n_s_valid=ns)
+    runs = [(f"_ring_join_impl {alg}", alg,
+             lambda alg=alg: _ring_join_impl(Rp, Sp, K, mesh, algorithm=alg, **kw))
+            for alg in DRIVERS]
+    runs += [(f"ring_knn_join {alg} dim_axis=model", alg,
+              lambda alg=alg: ring_knn_join(Rp, Sp, K, mesh, algorithm=alg, dim_axis="model",
+                                            **kw))
+             for alg in ("bf", "iib")]
+    spec = JoinSpec(k=K, algorithm="iiib", r_block=BLOCK, s_block=BLOCK, tile=TILE)
+    runs.append(("distributed_join iiib (the store route)", "iiib",
+                 lambda: distributed_join(Rp, Sp, spec, mesh, **kw)))
+    return nr, runs
+
+
+def phase13_ring(smi, label, devs, R, S, singles, reset_counts):
+    """(c) the ring join over a (RING, 2) mesh of ``devs``.  Returns
+    topk_merge launches."""
+    from repro_torch.kernels.topk_merge.kernel import topk_merge_cuda
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sparse.datagen import synthetic_sparse
+    from repro_torch.testing import assert_topk_close
+
+    mesh = make_host_mesh(RING, 2, devices=devs)
+    shard = -(-N_S // RING)
+    store_merges = -(-N_R // BLOCK) * (RING * -(-shard // BLOCK) + RING - 1)
+    launches = 0
+    nr, runs = ring_runs(mesh, R, S)
+    for run_label, alg, fn in runs:
+        st, secs, merges = launches_of(topk_merge_cuda, fn, reset_counts)
+        launches += merges
+        assert merges == (store_merges if "store" in run_label else RING * RING), merges
+        err = assert_topk_close(st.scores[:nr].cpu(), st.ids[:nr].cpu(), singles[alg].scores.cpu(),
+                                singles[alg].ids.cpu(), RTOL, ATOL)
+        print(f"phase 13 (c) {run_label} over the ({RING}, 2) mesh {label} on {smi}: "
+              f"{secs:.4f} s, topk_merge launches {merges}, vs phase 9's single {alg} index "
+              f"max|dscore|={err:.3e}")
+    # each against its own CPU path, at a small size
+    n_r, n_s, dim, nnz = RING_SMALL
+    sR = synthetic_sparse(n_r, dim=dim, nnz_mean=nnz, seed=5)
+    sS = synthetic_sparse(n_s, dim=dim, nnz_mean=nnz, seed=6)
+    cpu = make_host_mesh(RING, 2, devices="cpu")
+    worst = 0.0
+    nr, runs = ring_runs(mesh, sR, sS)
+    for (_, _, fn), (_, _, cpu_fn) in zip(runs, ring_runs(cpu, sR, sS)[1]):
+        got, want = fn(), cpu_fn()
+        assert got.scores.device.type == devs[0].type and want.scores.device.type == "cpu"
+        worst = max(worst, assert_topk_close(got.scores[:nr].cpu(), got.ids[:nr].cpu(),
+                                             want.scores[:nr], want.ids[:nr], RTOL, ATOL))
+    print(f"phase 13 (c) every run above at R {n_r} x S {n_s}, dim {dim}, against its CPU path "
+          f"(a mesh of CPU entries): max|dscore|={worst:.3e}")
+    return launches
+
+
+def phase13(smi, root, dev, R, S, singles, store_queries, yeast, reset_counts):
+    """Phase 13 (see the module docstring) on ``dev`` (cuda:0) and, where
+    there are more cards, over distinct ones.  Returns topk_merge launches
+    of its main-path runs."""
+    t0 = time.perf_counter()
+    launches = phase13_cli(smi, root, dev, R, S, singles, reset_counts)
+    one = [dev] * (2 * RING)
+    launches += phase13_store(smi, f"[{dev}] x {RING}", one[:RING], R, S, store_queries,
+                              yeast, reset_counts)
+    launches += phase13_ring(smi, f"[{dev}] x {2 * RING}", one, R, S, singles, reset_counts)
+    n = torch.cuda.device_count()
+    if n >= 2:
+        many = [torch.device("cuda", i % n) for i in range(2 * RING)]
+        label = "[" + ", ".join(str(d) for d in many) + "]"
+        launches += phase13_store(smi, label, many[:RING], R, S, store_queries, yeast,
+                                  reset_counts)
+        launches += phase13_ring(smi, label, many, R, S, singles, reset_counts)
+    else:
+        print("phase 13 (d): this machine has one card (torch.cuda.device_count() == 1), so "
+              "(b) and (c) ran over meshes that repeat cuda:0 only")
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s, topk_merge launches on its main-path "
+          f"runs {launches}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2799,13 +3075,19 @@ def main():
 
     # phase 11: the sharded store on one card (counts from 0 around each
     # main-path run)
-    store_merges, store_merge_err, iib_store, yeast = phase11(
+    store_merges, store_merge_err, iib_store, yeast, store_queries = phase11(
         smi, name, R, S, rows, o_s, o_i, driver_results, driver_medians, reset_counts)
 
     # phase 12: the store's checkpoints and the serving front-end (counts
     # from 0 around each main-path run)
     store_merges += phase12(smi, R, S, iib_store, yeast, reset_counts)
-    del iib_store, yeast
+    del iib_store
+
+    # phase 13: the multi-device join and the job launcher (counts from 0
+    # around each main-path run)
+    store_merges += phase13(smi, root, torch.device("cuda", 0), R, S, driver_results,
+                            store_queries, yeast, reset_counts)
+    del yeast, store_queries
 
     print(json.dumps({"kernels": [
         {
@@ -2841,7 +3123,7 @@ def main():
             "source": "src/repro_torch/kernels/csrc/topk_merge.cu",
             "replaces": "src/repro/kernels/topk_merge/kernel.py:52",
             "launches": unfused_counts[1] + split_counts[1] + driver_merges
-            + life_launches["topk_merge"] + store_merges,   # phases 11 and 12
+            + life_launches["topk_merge"] + store_merges,   # phases 11 to 13
             "max_abs_err": max(merge_err, driver_merge_case[0], life_errs["topk_merge"],
                                store_merge_err),
             "ms": merge_ms,

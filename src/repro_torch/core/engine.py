@@ -41,6 +41,9 @@ candidates.  ``plan`` takes a measured calibration.  Each R block is an
 ``engine.r_block`` span, and IIIB's threshold traces feed the process
 registry's ``knn_min_prune_threshold`` histogram.
 
+``distributed_join`` is the engine face of the multi-device join: the
+sharded store over a device mesh, or the ring driver of ``core/ring.py``.
+
 Block geometry, candidate rules, tie order and the work counters follow
 the reference, so ``JoinStats`` equals its counts.  Entry points run on
 ``device`` — CUDA unless the caller passes ``device="cpu"``, where the
@@ -53,8 +56,9 @@ from __future__ import annotations
 import collections
 import dataclasses
 import json
+import math
 import time
-from typing import Deque, List, Optional, Tuple
+from typing import Deque, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -70,7 +74,7 @@ from repro_torch.core.index import (
     dense_r_tiles,
     max_rows_bound,
 )
-from repro_torch.core.topk import TopKState, init_topk, merge_step, min_prune_score
+from repro_torch.core.topk import NEG_INF, TopKState, init_topk, merge_step, min_prune_score
 from repro_torch.device import resolve_device
 from repro_torch.kernels.knn_score.ops import _pad_rows, active_lists, dense_tiles_with_sentinel
 from repro_torch.kernels.knn_topk.ops import join_topk, knn_topk, pad_state
@@ -1223,3 +1227,66 @@ class SparseKNNIndex:
             stats.list_entries += int(kept)
             stats.host_syncs += 1
         return state
+
+
+# ---------------------------------------------------------------------------
+# distributed face (mesh join)
+# ---------------------------------------------------------------------------
+
+def distributed_join(
+    R: SparseBatch,
+    S: SparseBatch,
+    spec: JoinSpec,
+    mesh,
+    *,
+    ring_axes: Sequence[str] = ("data",),
+    dim_axis: Optional[str] = None,
+    n_r_valid: Optional[int] = None,
+    n_s_valid: Optional[int] = None,
+) -> TopKState:
+    """Mesh-distributed query: the engine face of the multi-device join.
+
+    ``mesh`` is a ``launch/mesh.py::DeviceMesh``.  By default S is
+    partitioned over ``ring_axes`` into the sharded store's per-shard index
+    stacks (``repro_torch.store.ShardedKNNStore``, built once) and every R
+    block is one fan-out with a top-k reduction.  The ring driver
+    (``core/ring.py::_ring_join_impl``) runs instead for ``dim_axis``
+    (dimension-sharded tensor parallelism, which the store does not cover)
+    and when S has fewer valid rows than ring positions (the store needs a
+    row a shard).  The reference's third route, traced inputs under
+    ``jax.jit`` (the dry-run compiling the whole join as one program), has
+    no counterpart: nothing here is traced.  Returns a TopKState over all
+    of R's rows (padding rows past ``n_r_valid`` empty) on the mesh's first
+    device.
+    """
+    n_r, n_s = R.num_vectors, S.num_vectors
+    n_r_valid = n_r if n_r_valid is None else n_r_valid
+    n_s_valid = n_s if n_s_valid is None else n_s_valid
+    n_ring = math.prod(mesh.shape[a] for a in ring_axes)
+    if dim_axis is not None or n_s_valid < n_ring:
+        from repro_torch.core.ring import _ring_join_impl
+
+        return _ring_join_impl(
+            R, S, spec.k, mesh,
+            algorithm=spec.algorithm or "iiib",
+            ring_axes=ring_axes, dim_axis=dim_axis, tile=spec.tile,
+            n_r_valid=n_r_valid, n_s_valid=n_s_valid,
+        )
+    # imported here: the store imports this module
+    from repro_torch.store import ShardedKNNStore
+
+    # the ring API let callers pad R/S to the ring size; the store needs
+    # neither the padding nor the divisibility, so strip it
+    store = ShardedKNNStore(
+        S.rows(0, n_s_valid), dataclasses.replace(spec, algorithm=spec.algorithm or "iiib"),
+        mesh=mesh, axes=tuple(ring_axes),
+    )
+    res = store.query(R.rows(0, n_r_valid))
+    pad = n_r - n_r_valid
+    if not pad:
+        return res.state
+    k, dev = res.scores.shape[1], res.scores.device
+    return TopKState(
+        scores=torch.cat([res.scores, torch.full((pad, k), NEG_INF, device=dev)]),
+        ids=torch.cat([res.ids, torch.full((pad, k), -1, dtype=torch.int32, device=dev)]),
+    )

@@ -19,8 +19,9 @@ Soundness (tile-granular Theorem 1): for any r, ``dot(r, s on masked
 tiles) <= Σ_masked maxw_tile[t]·tilemass[s, t] = pref_ub(s) <= threshold
 <= pruneScore(r)``, so a true candidate shares a kept feature (A > 0).
 
-``iiib_join_block_uniform`` (the reference's ring-join variant) is not
-here: it serves only the distributed join, ROADMAP.md queue 1 item 7.
+``iiib_join_block_uniform`` is the ring join's step (``core/ring.py``): a
+per-pair index built with a block-uniform crossing tile, scored as a
+dense prefix plus the indexed suffix.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.bf import block_ids
-from repro_torch.core.index import TileIndex, dense_r_tiles, masked_tile_scores
+from repro_torch.core.index import TileIndex, dense_r_tiles, masked_tile_scores, tile_scores
 from repro_torch.core.topk import NEG_INF, TopKState, merge_step, min_prune_score, prune_scores
 from repro_torch.sparse.format import (
     SparseBatch,
@@ -156,3 +157,43 @@ def iiib_scan_join(
         thr_trace.append(thr)
         kept_trace.append(kept)
     return state, thr, torch.stack(thr_trace), torch.stack(kept_trace)
+
+
+# ---------------------------------------------------------------------------
+# the ring join's step (uniform crossing)
+# ---------------------------------------------------------------------------
+
+def iiib_join_block_uniform(
+    state: TopKState,
+    r_block: SparseBatch,
+    r_tiles: torch.Tensor,      # (T, |Br|, tile) rank-permuted dense R tiles
+    rank: torch.Tensor,
+    index: TileIndex,           # built with uniform=True: every row crosses at c_min
+    s_block: SparseBatch,       # needed for the dense prefix pass
+    s_offset,                   # first-row global id (int or scalar tensor)
+    s_valid: torch.Tensor,      # (|Bs|,) bool
+    tile: int,
+) -> TopKState:
+    """One exact IIIB step with a block-uniform crossing tile ``c_min``
+    (``build_tile_index(..., uniform=True)``: every row's lists start at
+    the block's smallest crossing).
+
+    Tiles below ``c_min``: a dense product of all rows, accumulated tile by
+    tile in tile order (the reference's scan adds an exact zero for every
+    tile from ``c_min`` on, so its sum is this one).  Tiles from ``c_min``
+    on: the pruned lists (``tile_scores`` over every tile; the lists are
+    empty below the crossing).  Every valid S row is offered with its
+    exact dot, merged through ``merge_step``.  ``c_min`` is read to the
+    host (one sync a step): it bounds the prefix loop."""
+    t_total = r_tiles.shape[0]
+    n_s = s_block.num_vectors
+    c_min = int(index.crossing[0]) if n_s else 0
+    prefix = torch.zeros((r_tiles.shape[1], n_s), dtype=torch.float32, device=r_tiles.device)
+    if c_min > 0:
+        s_tiles = dense_r_tiles(s_block, tile, rank=rank)          # (T, |Bs|, tile)
+        for t in range(min(c_min, t_total)):
+            prefix = prefix + r_tiles[t] @ s_tiles[t].T
+    suffix = tile_scores(r_tiles, index, np.arange(t_total, dtype=np.int32))
+    scores = torch.where(s_valid[None, :], prefix + suffix, NEG_INF)
+    return merge_step(state, scores, block_ids(s_offset, n_s, device=scores.device))
+

@@ -27,6 +27,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.device import to_device
 from repro_torch.sparse.format import DEFAULT_TILE, SparseBatch, num_tiles
 
 
@@ -286,7 +287,7 @@ def masked_tile_scores(
         return acc_kept[:, : index.num_s], acc_full[:, : index.num_s]
     # sentinel row (id num_s): never kept; one gather gives every tile's mask
     kp = torch.cat([keep, torch.zeros((1, t_total), dtype=torch.bool, device=dev)])
-    tt = torch.as_tensor(tiles, device=dev)
+    tt = to_device(torch.as_tensor(tiles), dev)     # no host sync: the store's shards overlap
     keep_lists = kp[index.rows[tt].long(), tt[:, None]]          # (A, M)
     for j, t in enumerate(tiles):
         rows_t = index.rows[t]

@@ -11,7 +11,7 @@ Tie order is part of the contract: the earliest-offered candidate wins.
 order among equal scores.  ``merge_step`` (the join drivers' block step) and
 ``merge_topk_states`` merge with the same tie order, through the
 topk_merge kernel on CUDA, and so does ``tree_reduce_topk``, the sharded
-store's reduction over its shards' states.
+store's reduction over its shards' states (gathered from their devices).
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_device
 from repro_torch.kernels.topk_merge.kernel import topk_merge_cuda
 from repro_torch.kernels.topk_merge.ref import topk_merge_plain
 
@@ -80,11 +80,14 @@ def tree_reduce_topk(states: Sequence[TopKState]) -> TopKState:
     (0, 1), (2, 3), ... in each round with an odd last state carried up, so
     the lower shard always sits on the tie-winning side (shard i's rows
     precede shard i+1's in the concatenated S).  ``len(states) - 1`` merges,
-    each a topk_merge launch on CUDA states.  The reference all-gathers the
-    states over a mesh axis first; here they already lie on one device."""
-    states = list(states)
+    each a topk_merge launch on CUDA states.  The states may lie on
+    different devices: like the reference's all-gather over the mesh axis,
+    they are first gathered, in shard order, to the first state's device
+    (without a host sync; a state already there is not copied)."""
     if not states:
         raise ValueError("tree_reduce_topk needs at least one state")
+    dev = states[0].scores.device
+    states = [TopKState(to_device(s.scores, dev), to_device(s.ids, dev)) for s in states]
     while len(states) > 1:
         states = [merge_topk_states(states[i], states[i + 1]) if i + 1 < len(states)
                   else states[i] for i in range(0, len(states), 2)]

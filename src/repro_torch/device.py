@@ -12,3 +12,11 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' to run "
                            "the kernels' plain versions on the CPU")
     return dev
+
+
+def to_device(x: torch.Tensor, device) -> torch.Tensor:
+    """``x`` on ``device`` (no copy where it already lies there).  A copy to
+    a CUDA device does not make the host wait; a copy to the host does, as
+    the host reads it at once."""
+    device = torch.device(device)
+    return x.to(device, non_blocking=device.type == "cuda")

@@ -20,6 +20,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.device import to_device
+
 DEFAULT_TILE = 128
 
 
@@ -45,9 +47,11 @@ class SparseBatch:
         return self.indices.device
 
     def to(self, device) -> "SparseBatch":
+        """The batch on ``device`` (``device.to_device``: a copy to a CUDA
+        device does not make the host wait)."""
         return SparseBatch(
-            indices=self.indices.to(device), values=self.values.to(device),
-            nnz=self.nnz.to(device), dim=self.dim,
+            indices=to_device(self.indices, device), values=to_device(self.values, device),
+            nnz=to_device(self.nnz, device), dim=self.dim,
         )
 
     def rows(self, lo: int, hi: int) -> "SparseBatch":

@@ -1,14 +1,16 @@
-"""ShardedKNNStore on one device: build-once-per-shard indexes, a fan-out
-query merged through the topk_merge kernel, delete/TTL tombstones, and
-replica failover (the PyTorch counterpart of ``repro.store.sharded``,
-DESIGN.md §7, §10).
+"""ShardedKNNStore over a device mesh: build-once-per-shard indexes, a
+fan-out query merged through the topk_merge kernel, delete/TTL
+tombstones, and replica failover (the PyTorch counterpart of
+``repro.store.sharded``, DESIGN.md §7, §10).
 
 Serving one big S to heavy query traffic takes the standard distributed
 kNN-join decomposition (Lu et al., "Efficient Processing of k Nearest
 Neighbor Joins using MapReduce"): partition S row-wise, join every query
-block against every partition, merge the per-partition top-k.  The
-reference puts one shard on each device of a mesh; here every shard lies
-on one device:
+block against every partition, merge the per-partition top-k.  As in the
+reference, shard ``i`` lies on the device at position ``i`` of a mesh
+(``launch/mesh.py::DeviceMesh``); one process drives every device.  A
+mesh may repeat one device, and without one (``num_shards=``,
+``device=``) every shard lies on one device:
 
 * **Shard layout.**  S is split into contiguous row ranges
   (``np.array_split``).  Each shard's index structures are built ONCE: the
@@ -18,32 +20,38 @@ on one device:
   build over the concatenated S does).  The plan, and with it the block
   size, is made once at store level.  The per-shard stacks are padded to
   the cross-shard maxima and stacked into ``(num_shards, blocks, ...)``
-  tensors: one tensor set per replica, on the device.
+  tensors, and each replica places them on its devices
+  (``launch/sharding.py::store_put``: per leaf, shard ``i``'s slice on
+  shard ``i``'s device).
 
-* **Replicas.**  ``replicas=`` places the SAME stacks once per replica,
-  each replica in tensors of its own (the host mirror is the single
-  source of truth; a replica is a pure function of it, never a view of
-  another replica).  Each fan-out routes to exactly one replica — half-open
-  probes first, then live clean replicas round-robin, then lossy ones,
-  dead replicas never — and a ``ShardLostError``/``ReplicaLostError`` at
-  dispatch fails over to the next replica within the same R block, so
-  callers see FULL results through a replica loss.  Health is a circuit
-  breaker per replica (``runtime.fault.ReplicaHealth``); mutations write
-  through to every non-dead replica and queue dirty shards for dead ones;
+* **Replicas.**  ``replicas=`` (or a mesh axis named ``'replica'``, split
+  by ``launch/mesh.py::replica_submeshes``) places the SAME stacks once
+  per replica, each replica in tensors of its own (the host mirror is the
+  single source of truth; a replica is a pure function of it, never a view
+  of another replica).  Each fan-out routes to exactly one replica —
+  half-open probes first, then live clean replicas round-robin, then lossy
+  ones, dead replicas never — and a
+  ``ShardLostError``/``ReplicaLostError`` at dispatch fails over to the
+  next replica within the same R block, so callers see FULL results
+  through a replica loss.  Health is a circuit breaker per replica
+  (``runtime.fault.ReplicaHealth``); mutations write through to every
+  non-dead replica and queue dirty shards for dead ones;
   :meth:`resync_replicas` re-places the missed slices and re-admits the
   replica half-open; :meth:`verify_replicas` audits bit-parity.
 
 * **Fan-out query.**  ``query(R)`` prepares each R block's inputs once
   (``engine.prepare_r_block_inputs``: they depend only on R and on
-  build-frozen statistics) and walks the shards in shard order: each shard
-  runs the engine's driver (``bf_scan_join``/``iib_scan_join``/
-  ``iiib_scan_join``) over its slice of the replica's stacks from a fresh
-  top-k state, and ``core.topk.tree_reduce_topk`` merges the shards'
-  states.  Every block step and every merge of the reduction is a
-  topk_merge launch on CUDA.  One dispatch and one host sync (the result
-  pull) per R block, whatever the shard or replica count, and no
-  query-time index build.  Results equal a single SparseKNNIndex over the
-  concatenated S: shards hold ascending global-id ranges and the
+  build-frozen statistics), sends them to each shard's device, and
+  launches the shards' walks in shard order with no host sync between
+  them, so the walks of distinct devices overlap: each shard runs the
+  engine's driver (``bf_scan_join``/``iib_scan_join``/``iiib_scan_join``)
+  over its slice of the replica's stacks from a fresh top-k state, and
+  ``core.topk.tree_reduce_topk`` gathers the shards' states to the first
+  shard's device and merges them.  Every block step and every merge of the
+  reduction is a topk_merge launch on CUDA.  One dispatch and one host
+  sync (the result pull) per R block, whatever the shard or replica count,
+  and no query-time index build.  Results equal a single SparseKNNIndex
+  over the concatenated S: shards hold ascending global-id ranges and the
   reduction keeps the lower shard on the tie-winning side.
 
 * **Mutability.**  ``add()`` appends a batch to the shard with the fewest
@@ -73,11 +81,10 @@ does not.
   shard count) and answers bit for bit the saved store; ``recover(d)``
   rebuilds only the lost shards from their sha-verified slices.
 
-Not here yet: the HLO hook ``lowered_fanout`` (no HLO; see
-``obs/profile.py::fanout_report``) and the multi-device layout
-(``mesh=``/``axes=``); the constructor takes ``num_shards``, ``replicas``
-and ``device`` instead.  Entry points run on ``device`` — CUDA unless the
-caller passes ``device="cpu"``.
+Not here: the HLO hook ``lowered_fanout`` (no HLO; see
+``obs/profile.py::fanout_report``).  Without a mesh the store runs on
+``device`` — CUDA unless the caller passes ``device="cpu"``; with one, its
+results come back to the first shard's device.
 """
 from __future__ import annotations
 
@@ -109,7 +116,14 @@ from repro_torch.core.iib import iib_scan_join
 from repro_torch.core.iiib import iiib_scan_join
 from repro_torch.core.index import build_tile_index
 from repro_torch.core.topk import init_topk, tree_reduce_topk
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_device
+from repro_torch.launch.mesh import DeviceMesh, make_store_mesh, replica_submeshes
+from repro_torch.launch.sharding import (
+    placed_numpy,
+    placed_shape,
+    store_put,
+    store_shard_update,
+)
 from repro_torch.obs import recorder as obs_recorder
 from repro_torch.obs import trace as obs_trace
 from repro_torch.runtime.fault import ReplicaHealth, ReplicaLostError, ShardLostError
@@ -196,26 +210,33 @@ class StoreStats:
         return self.registry.expose()
 
 
-def _own_copy(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """``a`` as a tensor on ``device`` that shares no memory with ``a``
-    (on the CPU ``torch.from_numpy`` alone would alias the host mirror)."""
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device, copy=True)
+def _inputs_on(dev: torch.device, br: SparseBatch, prep: dict, *tensors):
+    """An R block's prepared inputs on ``dev`` (to a CUDA device without a
+    host sync; nothing is copied where they already lie)."""
+    def put(x):
+        return to_device(x, dev) if isinstance(x, torch.Tensor) else x
+
+    return (br.to(dev), {k: put(v) for k, v in prep.items()}) + tuple(put(t) for t in tensors)
 
 
 class ShardedKNNStore:
-    """Build-once-per-shard, query-many, mutable KNN datastore on one device.
+    """Build-once-per-shard, query-many, mutable KNN datastore over a mesh.
 
     ``spec`` follows the engine's JoinSpec; open fields are resolved once,
     globally, so every shard uses the same algorithm and block geometry.
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.DeviceMesh`) holds the
+    shards: ``axes`` names the mesh axis (or axes — they flatten into the
+    shard order) that S is partitioned over, by default every axis but
+    ``'replica'``, or the first; a mesh axis named ``'replica'`` that is
+    not in ``axes`` is the replication dimension.  Without a mesh,
     ``num_shards`` (default 1) row ranges of S are held on ``device``
-    (CUDA unless named), once per replica (``replicas``).
-    ``replica_fail_threshold`` is the health tracker's consecutive-failure
-    threshold (a single shard-copy loss below it keeps the replica
-    routable; a whole-replica loss kills it at once).  ``use_kernel`` and
-    ``warm_start`` are engine-only (the fused kernel and the sampled warm
-    start assume one resident stack) and are rejected, as in the
-    reference; so are ``mesh`` and ``axes``, which wait for the
-    multi-device store.
+    (CUDA unless named), once per replica (``replicas``): the mesh of that
+    one device repeated.  ``replica_fail_threshold`` is the health
+    tracker's consecutive-failure threshold (a single shard-copy loss
+    below it keeps the replica routable; a whole-replica loss kills it at
+    once).  ``use_kernel`` and ``warm_start`` are engine-only (the fused
+    kernel and the sampled warm start assume one resident stack) and are
+    rejected, as in the reference.
     """
 
     def __init__(
@@ -246,21 +267,27 @@ class ShardedKNNStore:
         # post-freeze mutations), and — when the loader's shard count
         # matches the save — the exact saved row split.
         t0 = time.perf_counter()
-        if mesh is not None or axes is not None:
-            raise ValueError("mesh= and axes= are not supported by the port's "
-                             "ShardedKNNStore yet: it holds every shard on one device; "
-                             "pass num_shards= and replicas=")
         if spec.use_kernel:
             raise ValueError("use_kernel is not supported by ShardedKNNStore yet")
         if spec.warm_start:
             raise ValueError("warm_start is not supported by ShardedKNNStore yet")
-        if replicas < 1:
-            raise ValueError(f"replicas must be >= 1, got {replicas}")
-        self.device = resolve_device(device)
-        self.n_shards = 1 if num_shards is None else int(num_shards)
-        if self.n_shards < 1:
-            raise ValueError(f"num_shards must be >= 1, got {num_shards}")
-        self.n_replicas = int(replicas)
+        if mesh is None:
+            if axes is not None:
+                raise ValueError("axes= names axes of a mesh; pass mesh= with it")
+            n = 1 if num_shards is None else int(num_shards)
+            if n < 1:
+                raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+            mesh = make_store_mesh(n, replicas=replicas,
+                                   devices=[resolve_device(device)] * (n * replicas))
+        elif device is not None:
+            raise ValueError("pass device= or mesh=, not both: the mesh names the devices")
+        self._set_mesh(mesh, axes)
+        if num_shards is not None and int(num_shards) != self.n_shards:
+            raise ValueError(f"num_shards={num_shards} but the mesh holds "
+                             f"{self.n_shards} shards over {self._axes}")
+        if replicas != 1 and replicas != self.n_replicas:
+            raise ValueError(f"replicas={replicas} but the mesh holds "
+                             f"{self.n_replicas} replicas")
         self.health = ReplicaHealth(
             self.n_replicas, fail_threshold=replica_fail_threshold)
 
@@ -373,6 +400,26 @@ class ShardedKNNStore:
         self._host_geometry: Optional[tuple] = None
         self._upload_stacks()
         self.stats.build_wall_s += time.perf_counter() - t0
+
+    def _set_mesh(self, mesh: DeviceMesh, axes: Optional[Sequence[str]]):
+        """The store's layout on ``mesh``: its shard axes, one sub-mesh per
+        replica, each replica's shard devices, and the store's own device
+        (replica 0's first shard's: builds, the IIIB rank, results)."""
+        names = mesh.axis_names
+        if axes is None:
+            axes = tuple(a for a in names if a != "replica") if "replica" in names else names[:1]
+        self.mesh = mesh
+        self._axes = tuple(axes) if isinstance(axes, (tuple, list)) else (axes,)
+        if "replica" in names and "replica" not in self._axes:
+            self._replica_meshes = replica_submeshes(mesh)
+        else:
+            self._replica_meshes = [mesh]
+        self.n_replicas = len(self._replica_meshes)
+        self._shard_devices = [m.devices_along(self._axes) for m in self._replica_meshes]
+        self.n_shards = len(self._shard_devices[0])
+        for dev in {d for devs in self._shard_devices for d in devs}:
+            resolve_device(dev)
+        self.device = self._shard_devices[0][0]
 
     def _build_shard(self, idx: np.ndarray, val: np.ndarray, nnz: np.ndarray) -> SparseKNNIndex:
         """One shard's engine index (streaming mode: host mirrors and block
@@ -641,34 +688,31 @@ class ShardedKNNStore:
                 self._place_replica_shards(r, sorted(touched))
 
     def _place_replica_full(self, r: int):
-        """Replica r's whole tensor set, copied from the host mirror (its
-        old tensors are released first, so a re-placement never holds two
-        sets of one replica)."""
+        """Replica r's whole tensor set, copied from the host mirror onto
+        its sub-mesh (its old tensors are released first, so a
+        re-placement never holds two sets of one replica)."""
         self._stacks[r] = None
-        tree = {
-            k: _own_copy(v, self.device)
-            for k, v in self._stacked_host.items() if k != "valid"
-        }
-        tree["valid"] = _own_copy(self._replica_valid(r), self.device)
-        self._stacks[r] = tree
+        tree = dict(self._stacked_host, valid=self._replica_valid(r))
+        self._stacks[r] = store_put(tree, self._replica_meshes[r], self._axes)
         self.stats.placed_shards += self.n_shards
-        self.stats.placed_bytes += sum(
-            int(v.numel()) * v.element_size() for v in tree.values())
+        self.stats.placed_bytes += sum(int(v.nbytes) for v in tree.values())
 
     def _place_replica_shards(self, r: int, shards: Sequence[int]):
-        """Copy shard slices into replica r's tensors in place."""
+        """Copy shard slices into replica r's tensors in place, each on its
+        shard's device."""
         st = self._stacks[r]
         valid = self._replica_valid(r)
         for i in shards:
             for k, host in self._stacked_host.items():
-                sl = valid[i] if k == "valid" else host[i]
-                st[k][i].copy_(torch.from_numpy(np.ascontiguousarray(sl)))
-                self.stats.placed_bytes += int(sl.size) * st[k].element_size()
+                sl = valid[i:i + 1] if k == "valid" else host[i:i + 1]
+                store_shard_update(st[k], i, sl)
+                self.stats.placed_bytes += int(sl.nbytes)
             self.stats.placed_shards += 1
 
     def _refresh_replica_valid(self, r: int):
         """Re-place ONLY replica r's valid mask (tombstones / lost folds)."""
-        self._stacks[r]["valid"] = _own_copy(self._replica_valid(r), self.device)
+        self._stacks[r]["valid"] = store_put(self._replica_valid(r), self._replica_meshes[r],
+                                             self._axes)
 
     def _refresh_valid(self):
         """Tombstone fold: ONLY the valid mask re-uploads — no index arrays
@@ -690,47 +734,53 @@ class ShardedKNNStore:
 
     # -- fan-out query -------------------------------------------------------
 
-    def _fanout(self, st: Dict[str, torch.Tensor], rb: int, br: SparseBatch,
+    def _fanout(self, r: int, rb: int, br: SparseBatch,
                 prep: dict, rv: Optional[torch.Tensor], approx: bool,
                 rk: Optional[torch.Tensor] = None, rr: Optional[torch.Tensor] = None):
-        """One R block against every shard of one replica's stacks (the
-        reference's shard_map program): each shard's driver walk over its
-        slice in shard order, from a fresh top-k state (IIIB: and its own
-        MinPruneScore, from -inf), then ``tree_reduce_topk`` over the
-        shards' states.  Returns (state, per-shard kept-entry counts,
+        """One R block against every shard of replica r's stacks (the
+        reference's shard_map program): the R block's prepared inputs sent
+        to each shard's device, each shard's driver walk over its slice
+        from a fresh top-k state (IIIB: and its own MinPruneScore, from
+        -inf), launched in shard order with no host sync between shards,
+        then ``tree_reduce_topk`` over the shards' states on the first
+        shard's device.  Returns (state, per-shard kept-entry counts,
         per-shard final thresholds, per-shard candidate counts), the last
-        three None where they do not apply; all stay on the device.
+        three None where they do not apply; all on the store's device.
 
         ``approx`` ANDs each shard's band hits into that shard's valid
         mask and counts its live candidates."""
         k, dim, sb, tile = self.spec.k, self.dim, self.s_block, self.tile
-        dev = self.device
+        st = self._stacks[r]
+        here = {}                       # device -> the R block's inputs on it
         states, kept, thr, cand = [], [], [], []
-        for i in range(self.n_shards):
+        for i, dev in enumerate(self._shard_devices[r]):
+            if dev not in here:
+                here[dev] = _inputs_on(dev, br, prep, rv, rk, rr)
+            b_i, p_i, rv_i, rk_i, rr_i = here[dev]
             valid = st["valid"][i]
             if approx:
-                valid = valid & lsh_mod.band_hits(rk, rr, st["lshk"][i])
+                valid = valid & lsh_mod.band_hits(rk_i, rr_i, st["lshk"][i])
                 cand.append(valid.sum())
             state = init_topk(rb, k, device=dev)
             if self.algorithm == "bf":
-                state = bf_scan_join(state, br, st["idx"][i], st["val"][i], st["nnz"][i],
+                state = bf_scan_join(state, b_i, st["idx"][i], st["val"][i], st["nnz"][i],
                                      st["ids"][i], valid, dim=dim)
             elif self.algorithm == "iib":
-                state = iib_scan_join(state, prep["r_tiles"], prep["tiles"], st["rows"][i],
+                state = iib_scan_join(state, p_i["r_tiles"], p_i["tiles"], st["rows"][i],
                                       st["vals"][i], st["counts"][i], st["ids"][i], valid,
                                       tile=tile, num_s=sb)
             else:
                 seed = torch.full((), float("-inf"), dtype=torch.float32, device=dev)
                 state, t, _, kp = iiib_scan_join(
-                    state, seed, prep["r_tiles"], prep["mwt"], prep["tiles"], st["rows"][i],
-                    st["vals"][i], st["counts"][i], st["mass"][i], st["ids"][i], valid, rv,
+                    state, seed, p_i["r_tiles"], p_i["mwt"], p_i["tiles"], st["rows"][i],
+                    st["vals"][i], st["counts"][i], st["mass"][i], st["ids"][i], valid, rv_i,
                     tile=tile, num_s=sb)
                 thr.append(t)
                 kept.append(kp.sum())
             states.append(state)
 
         def stacked(xs):
-            return torch.stack(xs) if xs else None
+            return torch.stack([to_device(x, self.device) for x in xs]) if xs else None
 
         return tree_reduce_topk(states), stacked(kept), stacked(thr), stacked(cand)
 
@@ -942,7 +992,7 @@ class ShardedKNNStore:
                     if self.fault_plan is not None:
                         self.fault_plan.on_dispatch(replica=r)
                     state, kept, thr, cand_cnt = self._fanout(
-                        self._stacks[r], rb, br, prep, rv, approx, rk, rr)
+                        r, rb, br, prep, rv, approx, rk, rr)
                     self.health.record_success(r)
                     if tried:
                         self.stats.replica_failovers += 1
@@ -1266,7 +1316,8 @@ class ShardedKNNStore:
         rank, id stacks and tombstone state come from the newest valid
         checkpoint (``step`` pins one); device stacks and tile indexes are
         rebuilt on ``device``, re-split into ``num_shards`` (default: the
-        saved count).  ``replicas=`` fans the single persisted logical copy
+        saved count), or on ``mesh`` (over ``axes``), in as many shards as
+        it holds.  ``replicas=`` fans the single persisted logical copy
         out — replication is a placement property, so a save from an
         unreplicated store restores replicated (and vice versa) without any
         on-disk difference.  At the saved shard count, queries after load
@@ -1302,8 +1353,10 @@ class ShardedKNNStore:
             JoinSpec(**meta["spec"]),
             algorithm=meta["algorithm"], s_block=int(meta["s_block"]),
         )
+        if mesh is None and num_shards is None:
+            num_shards = n_saved
         store = cls(
-            S, spec, num_shards=n_saved if num_shards is None else num_shards,
+            S, spec, num_shards=num_shards,
             auto_compact=float(meta["auto_compact"]), calibration=calibration,
             replicas=replicas, replica_fail_threshold=replica_fail_threshold,
             device=device, mesh=mesh, axes=axes,
@@ -1475,7 +1528,7 @@ class ShardedKNNStore:
             self._lost[r].clear()
             self._replica_dirty[r].clear()
             stale_shape = self._stacks[r] is None or any(
-                tuple(self._stacks[r][k].shape) != v.shape
+                placed_shape(self._stacks[r][k]) != v.shape
                 for k, v in self._stacked_host.items()
             )
             if stale_shape or len(pending) >= self.n_shards:
@@ -1507,7 +1560,7 @@ class ShardedKNNStore:
                 continue
             for k, host in self._stacked_host.items():
                 want = self._replica_valid(r) if k == "valid" else host
-                got = self._stacks[r][k].cpu().numpy()
+                got = placed_numpy(self._stacks[r][k])
                 if not np.array_equal(got, want):
                     raise ValueError(
                         f"replica {r} leaf {k!r} diverges from the host "

@@ -10,7 +10,9 @@ topk_merge_cuda, and the datastore's lifecycle (extend, delete,
 expire, compact, refreeze) and the approx tier on every path, with the
 join kernels held to their plain versions on masked columns, and the
 sharded store (4 shards, exact and approx, and 2 replicas through a
-failover) against its CPU path, its merges counted on topk_merge_cuda.
+failover) against its CPU path, its merges counted on topk_merge_cuda,
+and the multi-device join: the ring and the store over meshes that
+repeat the card (and, where there are two cards, over distinct ones).
 Every test here needs a CUDA device and skips without one.  The file imports neither jax
 nor repro, so it runs on a machine with the card alone:
 
@@ -1008,7 +1010,7 @@ def test_store_on_card_matches_cpu(cuda, alg, acc, monkeypatch):
     spec = JoinSpec(k=5, algorithm=alg, r_block=128, s_block=256, **kw)
     card = ShardedKNNStore.build(S, spec, num_shards=4)
     cpu = ShardedKNNStore.build(S, spec, num_shards=4, device="cpu")
-    assert card._stacks[0]["ids"].device.type == cuda.type
+    assert all(t.device.type == cuda.type for t in card._stacks[0]["ids"])
     before = topk_merge_cuda.launches
     _refuse_plain_merges(monkeypatch)
     got = card.query(R)
@@ -1041,8 +1043,8 @@ def test_store_failover_on_card(cuda):
     R, S = _store_data()
     spec = JoinSpec(k=5, algorithm="iib", r_block=128, s_block=256)
     store = ShardedKNNStore.build(S, spec, num_shards=4, replicas=2)
-    assert all(store._stacks[0][k].data_ptr() != store._stacks[1][k].data_ptr()
-               for k in store._stacks[0])
+    assert all(a.data_ptr() != b.data_ptr()
+               for k in store._stacks[0] for a, b in zip(store._stacks[0][k], store._stacks[1][k]))
     clean = store.query(R)
     store.fault_plan = FaultPlan([FaultSpec("replica_error", replica=1)])
     res = store.query(R)
@@ -1086,7 +1088,7 @@ def test_store_save_load_recover_on_card(cuda, alg, tmp_path):
     store.save(str(tmp_path))
     want = store.query(R)
     loaded = ShardedKNNStore.load(str(tmp_path))
-    assert loaded._stacks[0]["ids"].device.type == cuda.type
+    assert all(t.device.type == cuda.type for t in loaded._stacks[0]["ids"])
     builds = loaded.stats.index_builds
     got = loaded.query(R)
     assert loaded.stats.index_builds == builds and got.stats.index_builds == 0
@@ -1225,3 +1227,102 @@ def test_profile_capture_holds_topk_merge(cuda, tmp_path):
     merges = sum(v["launches"] for k, v in rep["kernels"].items() if "topk_merge" in k)
     assert merges == 4 * store._num_blocks_stacked + 3
     assert rep["device_ms"] > 0 and rep["device"] == torch.cuda.get_device_name(0)
+
+
+# -- the multi-device join: meshes of the card ---------------------------------
+
+def _ring_runs(mesh, R, S):
+    """Each ring route of a (4, 2) mesh: the ring driver for each driver,
+    dim_axis='model' for bf and iib, and distributed_join's store route."""
+    from repro_torch.core.engine import distributed_join
+    from repro_torch.core.ring import _ring_join_impl, pad_to_ring, ring_knn_join
+
+    Rp, nr = pad_to_ring(R, 4)
+    Sp, ns = pad_to_ring(S, 4)
+    kw = dict(n_r_valid=nr, n_s_valid=ns)
+    runs = {f"ring-{a}": lambda a=a: _ring_join_impl(Rp, Sp, 5, mesh, algorithm=a, **kw)
+            for a in DRIVERS}
+    runs.update({f"dim-{a}": lambda a=a: ring_knn_join(Rp, Sp, 5, mesh, algorithm=a,
+                                                       dim_axis="model", **kw)
+                 for a in ("bf", "iib")})
+    runs["store-iiib"] = lambda: distributed_join(
+        Rp, Sp, JoinSpec(k=5, algorithm="iiib", r_block=128, s_block=256), mesh, **kw)
+    return runs
+
+
+def _ring_on(devices, monkeypatch):
+    """Every ring route on a (4, 2) mesh of ``devices`` against a mesh of
+    CPU entries (ids equal outside tie groups): each ring step and store
+    merge a topk_merge_cuda launch, no plain merge."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    R, S = synthetic_sparse(301, dim=2000, nnz_mean=40, seed=0), _store_data()[1]
+    card = _ring_runs(make_host_mesh(4, 2, devices=devices), R, S)
+    cpu = _ring_runs(make_host_mesh(4, 2, devices="cpu"), R, S)
+    for name, fn in card.items():
+        before = topk_merge_cuda.launches
+        _refuse_plain_merges(monkeypatch)
+        got = fn()
+        monkeypatch.undo()
+        merges = topk_merge_cuda.launches - before
+        want = cpu[name]()
+        # the store: 3 R blocks x (4 shards x 2 blocks (251 rows in blocks of
+        # 250, the smallest shard's) + 3 tree merges); the ring: 4 x 4 steps
+        assert merges == (3 * (4 * 2 + 3) if name.startswith("store") else 16), (name, merges)
+        assert got.scores.device == torch.device(devices[0])
+        assert_topk_close(got.scores.cpu().numpy(), got.ids.cpu().numpy(), want.scores.numpy(),
+                          want.ids.numpy(), RTOL, ATOL)
+
+
+def _mesh_store_on(devices):
+    """The store over a mesh of ``devices`` (4 shards; and 2 replicas x 2
+    shards through a failover) against the num_shards= store on the first
+    device: bit for bit, every counter equal."""
+    from repro_torch.launch.mesh import make_store_mesh
+    from repro_torch.runtime.fault import FaultPlan, FaultSpec
+    from repro_torch.store import ShardedKNNStore
+
+    R, S = _store_data()
+    for alg in DRIVERS:
+        spec = JoinSpec(k=5, algorithm=alg, r_block=128, s_block=256)
+        flat = ShardedKNNStore.build(S, spec, num_shards=4, device=devices[0])
+        meshed = ShardedKNNStore.build(S, spec, mesh=make_store_mesh(4, devices=devices))
+        for t, dev in zip(meshed._stacks[0]["ids"], devices):
+            assert t.device == torch.device(dev)
+        got, want = meshed.query(R), flat.query(R)
+        assert torch.equal(got.scores, want.scores) and torch.equal(got.ids, want.ids), alg
+        for c in STORE_COUNTS:
+            assert getattr(got.stats, c) == getattr(want.stats, c), c
+        for f in ("index_builds", "placed_shards", "placed_bytes", "stack_uploads"):
+            assert getattr(meshed.stats, f) == getattr(flat.stats, f), f
+    spec = JoinSpec(k=5, algorithm="iib", r_block=128, s_block=256)
+    flat = ShardedKNNStore.build(S, spec, num_shards=2, replicas=2, device=devices[0])
+    meshed = ShardedKNNStore.build(S, spec, mesh=make_store_mesh(2, replicas=2, devices=devices))
+    want = flat.query(R)
+    meshed.fault_plan = FaultPlan([FaultSpec("replica_error", replica=1, at_dispatch=1)])
+    got = meshed.query(R)
+    assert torch.equal(got.scores, want.scores) and torch.equal(got.ids, want.ids)
+    assert meshed.stats.replica_failovers == 1 and meshed.dead_replicas == (1,)
+    meshed.fault_plan = None
+    assert meshed.resync_replicas() == (1,) and meshed.verify_replicas()
+    assert torch.equal(meshed.query(R).scores, want.scores)
+
+
+def test_ring_on_card_mesh_matches_cpu(cuda, monkeypatch):
+    """The ring join on a (4, 2) mesh repeating the card."""
+    _ring_on([torch.device("cuda", 0)] * 8, monkeypatch)
+
+
+def test_store_on_card_mesh_equals_num_shards_store(cuda):
+    """ShardedKNNStore over [cuda:0] * 4 is the num_shards=4 store."""
+    _mesh_store_on([torch.device("cuda", 0)] * 4)
+
+
+def test_ring_and_mesh_store_over_two_cards(cuda, monkeypatch):
+    """The same over distinct cards (devices alternating)."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices")
+    devices = [torch.device("cuda", i % n) for i in range(8)]
+    _ring_on(devices, monkeypatch)
+    _mesh_store_on(devices[:4])

@@ -1,14 +1,16 @@
-"""The port stands alone: no module of src/repro_torch, and not
-chip_smoke.py, imports jax or the JAX package ``repro`` (``repro_torch``
-is the port's own).  Every import statement is found by walking the
-syntax tree, so imports inside functions count too."""
+"""The port stands alone: no module of src/repro_torch, not chip_smoke.py
+and not the port's examples (examples/torch_*.py) imports jax or the JAX
+package ``repro`` (``repro_torch`` is the port's own).  Every import
+statement is found by walking the syntax tree, so imports inside
+functions count too."""
 import ast
 import pathlib
 
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "examples").glob("torch_*.py")))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -40,5 +42,8 @@ def test_the_guard_covers_the_port():
     assert len(FILES) > 30
     port = ROOT / "src" / "repro_torch"
     for rel in ("core/engine.py", "core/lsh.py", "obs/__init__.py", "obs/registry.py",
-                "obs/trace.py", "obs/recorder.py"):
+                "obs/trace.py", "obs/recorder.py", "core/ring.py", "launch/join_job.py",
+                "launch/mesh.py", "launch/sharding.py", "configs/paper_knn.py"):
         assert port / rel in FILES, rel
+    for rel in ("torch_quickstart.py", "torch_peptide_search.py"):
+        assert ROOT / "examples" / rel in FILES, rel

@@ -443,12 +443,12 @@ def test_replicas_hold_tensors_of_their_own():
     store = ShardedKNNStore.build(S, spec, num_shards=2, replicas=2, device="cpu")
     a, b = store._stacks
     for k in a:
-        assert a[k].data_ptr() != b[k].data_ptr(), k
-        assert a[k].untyped_storage().data_ptr() != b[k].untyped_storage().data_ptr(), k
-        host = store._stacked_host[k]
-        assert not np.shares_memory(a[k].numpy(), host), k
+        for ta, tb in zip(a[k], b[k]):      # each shard's tensor
+            assert ta.data_ptr() != tb.data_ptr(), k
+            assert ta.untyped_storage().data_ptr() != tb.untyped_storage().data_ptr(), k
+            assert not np.shares_memory(ta.numpy(), store._stacked_host[k]), k
     assert store.verify_replicas()
-    b["vals"][0, 0].add_(1.0)
+    b["vals"][0][0].add_(1.0)
     with pytest.raises(ValueError, match="replica 1 leaf 'vals'"):
         store.verify_replicas()
     store._replica_dirty[1].add(0)
