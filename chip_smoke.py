@@ -184,6 +184,31 @@ and, through the entry points a user calls:
            topk_merge launches printed; (d) where the machine has more
            than one card, (b) and (c) again over distinct cards.
 
+and the LM serving path at full published width and depth:
+
+  phase 14 launch/serve.py::Server on the card, random weights from a seed,
+           prompts of 1,024 seeded tokens, max_seq 2,048: (a) qwen3-0.6b
+           bf16 (28 layers, d 1,024, H 16, KVH 8, hd 128, vocab 151,936),
+           4 slots, 8 requests of max_new 32; (b) the same in f32 (the
+           3xTF32 kernel), 2 slots, 2 requests; (c) rwkv6-3b bf16 (32
+           layers, d 2,560, 40 heads of 64, chunk 128), 2 slots, 4 requests
+           of max_new 16.  Per request prefill ms and decode ms a token,
+           tokens/s, latency_summary, device memory held and peak; the
+           launches asserted exactly (flash_attn one a layer a prefill and a
+           decode step: 7,168 bf16 in (a), 1,792 f32 in (b); wkv one a layer
+           a prefill: 128 in (c)); then a replay of the same prefill and
+           decode_step calls on the same tokens and weights with
+           kernels=False (the JAX package's plain _sdpa and _chunked_wkv),
+           launching nothing: the logits within LM_TOL_FACTOR * sqrt(L) *
+           unit * RMS, the greedy token equal wherever the replay's top two
+           are further apart than twice that; (d) `python -m
+           repro_torch.launch.serve --arch qwen3-0.6b` and (e)
+           examples/torch_knnlm_serve.py, each a process of its own (exit
+           0; the JAX CLI's JSON keys; the example's summary line); (f) the
+           flash_attn and wkv wrappers at the main path's shapes (qwen3-0.6b
+           prefill and a decode step, rwkv6-3b prefill) against their plain
+           versions, timed beside SDPA and their bounds.
+
 Every flash_attn and wkv comparison goes through repro_torch.testing
 (flash_close, wkv_close: one tolerance table with the card tests) and
 prints the largest share of its tolerance that any element used.
@@ -1011,9 +1036,9 @@ KERNEL_GROUPS = (  # (group, pattern in the CUDA kernel's name), first match win
 )
 
 
-def device_profile(fn):
+def device_profile(fn, kernel_groups=KERNEL_GROUPS):
     """(device busy ms, {group: (ms, kernels)}) of one call of ``fn`` from
-    torch.profiler: each CUDA kernel's time, grouped by name (KERNEL_GROUPS,
+    torch.profiler: each CUDA kernel's time, grouped by name (``kernel_groups``,
     else "other").  One stream, so busy = the kernels' sum."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1026,7 +1051,7 @@ def device_profile(fn):
         total = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
         if not total:
             continue
-        group = next((g for g, pat in KERNEL_GROUPS if re.search(pat, evt.key)), "other")
+        group = next((g for g, pat in kernel_groups if re.search(pat, evt.key)), "other")
         ms, n = groups.get(group, (0.0, 0))
         groups[group] = (ms + total / 1e3, n + evt.count)
         busy += total / 1e3
@@ -2730,6 +2755,290 @@ def phase13(smi, root, dev, R, S, singles, store_queries, yeast, reset_counts):
     return launches
 
 
+# phase 14: the LM serving path at full published width and depth, through
+# the entry points a user calls (src/repro_torch/launch/serve.py::Server;
+# src/repro/configs/qwen3_06b.py: 28 layers, d 1,024, H 16, KVH 8, hd 128,
+# ff 3,072, vocab 151,936, bf16; rwkv6_3b.py: 32 layers, d 2,560, 40 heads
+# of 64, ff 8,960, vocab 65,536, chunk 128, bf16), random weights from
+# LM_SEED, seeded prompts of LM_PROMPT tokens, a cache of LM_MAX_SEQ.
+LM_RUNS = (   # label, arch, dtype, batch (slots), requests, max_new
+    ("a", "qwen3-0.6b", "bfloat16", 4, 8, 32),
+    ("b", "qwen3-0.6b", "float32", 2, 2, 32),
+    ("c", "rwkv6-3b", "bfloat16", 2, 4, 16),
+)
+LM_PROMPT = 1024
+LM_MAX_SEQ = 2048
+LM_SEED = 0
+# The kernel path's logits against the replay's (the same prefill and
+# decode_step calls on the same tokens and weights with kernels=False, on
+# the card): |d| <= LM_TOL_FACTOR * sqrt(L) * unit * RMS(the replay's logits
+# of that call).  Inside each of the L layers' cores the two routes differ
+# by about one rounding of the core's output a step (bf16: unit 2^-8; the
+# plain route rounds _sdpa's scores, its probabilities and its output, or
+# _chunked_wkv's r e^L and k e^-L, the bf16 kernel its P; f32: unit 1e-5,
+# the rtol the f32 kernels are held to), four such steps a core; the
+# layers' differences are independent, so about sqrt(L) of them reach the
+# final hidden state and, through the unembedding, its logits; a margin of
+# 4 over that estimate gives the factor 16.
+LM_TOL_FACTOR = 16.0
+# the JAX package's serve CLI prints these keys (src/repro/launch/serve.py:463-471)
+LM_GROUPS = (  # (group, pattern in the CUDA kernel's name), first match wins
+    ("flash_attn", r"flash_attn"),
+    ("wkv", r"wkv_"),
+    ("products (cuBLAS)", r"gemm|Gemm|cutlass|gemv"),
+    ("reductions, norms, softmax", r"reduce|softmax|norm"),
+    ("elementwise (casts, adds, rope, activations)", r"elementwise|vectorized|fill|copy|Copy"),
+)
+SERVE_KEYS = {"arch", "requests", "completed", "decode_steps", "wall_s", "tok_per_s",
+              "total_tokens", "tokens_per_request", "latency_ms", "faults"}
+
+
+def lm_tolerance(cfg, want):
+    unit = 2.0 ** -8 if cfg.dtype == "bfloat16" else 1e-5
+    rms = float(want.float().pow(2).mean().sqrt())
+    return LM_TOL_FACTOR * cfg.num_layers ** 0.5 * unit * rms
+
+
+def phase14_serve(smi, dev, label, arch, dtype, batch, n_req, max_new, reset_counts, counters):
+    """One run of Server on the card and its replay with kernels=False.
+    Returns ({counter: launches}, max |d| of the logits)."""
+    import collections
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda
+    from repro_torch.kernels.wkv.kernel import wkv_cuda
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srv = Server(cfg, batch, LM_MAX_SEQ, device=dev, seed=LM_SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = nbytes(*srv.params.parameters())
+    rng = np.random.default_rng(LM_SEED)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, LM_PROMPT).astype(np.int32), max_new)
+            for i in range(n_req)]
+
+    calls = []   # (kind, slot, rid, tokens, pos, logits of the last position, ms)
+    prefill, decode = srv.prefill, srv.decode
+
+    def slot_of(cache):
+        return next(i for i, c in enumerate(srv.slot_cache) if c is cache)
+
+    def rec_prefill(params, batch_, cache):
+        t = time.perf_counter()
+        logits, out = prefill(params, batch_, cache)
+        torch.cuda.synchronize()
+        rid = sum(c[0] == "prefill" for c in calls)   # admitted in request order
+        calls.append(("prefill", slot_of(cache), rid, batch_["tokens"].clone(), None,
+                      logits[0, -1].clone(), (time.perf_counter() - t) * 1e3))
+        return logits, out
+
+    def rec_decode(params, token, cache, pos):
+        t = time.perf_counter()
+        logits, out = decode(params, token, cache, pos)
+        torch.cuda.synchronize()
+        s = slot_of(cache)
+        calls.append(("decode", s, srv.slot_req[s].rid, token.clone(), pos, logits[0, -1].clone(),
+                      (time.perf_counter() - t) * 1e3))
+        return logits, out
+
+    srv.prefill, srv.decode = rec_prefill, rec_decode
+    pending = collections.deque(reqs)
+    reset_counts()
+    t0 = time.perf_counter()
+    while pending or srv.occupancy():
+        while pending and srv.admit(pending[0]):
+            pending.popleft()
+        srv.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn: fn.launches for fn in counters}
+    bf16_launches = flash_attention_cuda.bf16_launches
+    f32_launches = flash_attention_cuda.f32_mma_launches
+    held, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+    L = cfg.num_layers
+    if cfg.family == "dense":
+        expected = n_req * L + n_req * (max_new - 1) * L   # a launch a layer a prefill and a step
+        got = bf16_launches if dtype == "bfloat16" else f32_launches
+        assert launches[flash_attention_cuda] == got == expected, (label, launches, expected)
+        assert bf16_launches + f32_launches == expected
+    else:
+        expected = n_req * L                               # the chunked prefill; decode is exact
+        assert launches[wkv_cuda] == expected, (label, launches, expected)
+    assert all(n == 0 for fn, n in launches.items()
+               if fn is not (flash_attention_cuda if cfg.family == "dense" else wkv_cuda)), launches
+    assert sorted(r.rid for r in srv.finished) == list(range(n_req))
+    assert all(len(r.out) == max_new for r in reqs)
+    total = sum(len(r.out) for r in reqs)
+    print(f"phase 14 ({label}) {cfg.name} {dtype} on {smi}: Server(batch={batch}, "
+          f"max_seq={LM_MAX_SEQ}) built in {init_s:.2f} s ({weights / 2**30:.3f} GiB of "
+          f"weights); {n_req} requests of {LM_PROMPT} prompt tokens x max_new {max_new} in "
+          f"{wall:.3f} s, {total / wall:.1f} tokens/s, latency {srv.latency_summary()}; device "
+          f"memory held {held / 2**30:.3f} GiB, peak {peak / 2**30:.3f} GiB")
+    for r in reqs:
+        pre = [c[6] for c in calls if c[0] == "prefill" and c[2] == r.rid]
+        dec = [c[6] for c in calls if c[0] == "decode" and c[2] == r.rid]
+        print(f"  request {r.rid}: prefill {pre[0]:.2f} ms, decode {np.mean(dec):.2f} ms a token "
+              f"({len(dec)} steps), admit->finish {(r.t_finish - r.t_admit) * 1e3:.1f} ms")
+    dec_all = [c[6] for c in calls if c[0] == "decode"]
+    print(f"  decode steps: median {np.median(dec_all):.2f} ms, mean {np.mean(dec_all):.2f} ms; "
+          f"launches flash_attn {launches[flash_attention_cuda]} (bf16 {bf16_launches}, f32 "
+          f"3xTF32 {f32_launches}), wkv {launches[wkv_cuda]}")
+
+    # the replay: the same calls, the same weights (shared), kernels=False
+    plain = M.LM(cfg, device="meta", kernels=False)
+    plain.load_state_dict(srv.params.state_dict(), assign=True)
+    caches = [M.make_serve_cache(cfg, 1, LM_MAX_SEQ, device=dev) for _ in range(batch)]
+    reset_counts()
+    t0 = time.perf_counter()
+    worst, used, checked, ties, same = 0.0, 0.0, 0, 0, 0
+    for kind, s, rid, tokens, pos, got, _ in calls:
+        if kind == "prefill":
+            want, caches[s] = M.prefill(plain, cfg, {"tokens": tokens}, caches[s])
+        else:
+            want, caches[s] = M.decode_step(plain, cfg, tokens, caches[s], pos)
+        want = want[0, -1]
+        tol = lm_tolerance(cfg, want)
+        err = float((got - want).abs().max())
+        assert err <= tol, (label, kind, rid, pos, err, tol)
+        worst, used = max(worst, err), max(used, err / tol)
+        same += int(torch.argmax(got)) == int(torch.argmax(want))
+        top2 = torch.topk(want, 2).values
+        if float(top2[0] - top2[1]) > 2 * tol:     # no flip within the tolerance
+            checked += 1
+            assert int(torch.argmax(got)) == int(torch.argmax(want)), (label, rid, pos)
+        else:
+            ties += 1
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    assert all(fn.launches == 0 for fn in counters), "the replay launched a kernel"
+    # one prefill and one decode step under torch.profiler: the device's busy
+    # time beside the call's wall (host clock through a synchronize)
+    for what, fn in (("prefill", lambda: prefill(srv.params, {"tokens": calls[0][3]},
+                                                 srv.slot_cache[0])),
+                     ("decode step", lambda: decode(srv.params, calls[-1][3], srv.slot_cache[0],
+                                                    LM_PROMPT + max_new))):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t) * 1e3
+        busy, groups = device_profile(fn, LM_GROUPS)
+        parts = "; ".join(f"{g} {ms:.3f} ms ({n})" for g, (ms, n) in
+                          sorted(groups.items(), key=lambda x: -x[1][0]))
+        print(f"  {what} profile: device busy {busy:.3f} ms of {step_ms:.3f} ms (idle share "
+              f"{1 - busy / step_ms:.3f}): {parts}")
+    print(f"  replay with kernels=False ({len(calls)} calls, {replay_s:.2f} s): logits max|d| "
+          f"{worst:.3e}, tol used {used:.3f} (tol {LM_TOL_FACTOR} x sqrt({L}) x "
+          f"{'2^-8' if dtype == 'bfloat16' else '1e-5'} x RMS); greedy token equal at "
+          f"{checked} calls whose top-two gap exceeds 2 x tol, {ties} near ties skipped; "
+          f"equal at {same} of the {len(calls)} calls in all")
+    del srv, plain, caches, calls
+    torch.cuda.empty_cache()
+    return launches, worst
+
+
+def phase14_kernels(dev, name):
+    """The wrappers at the shapes the main path gives them (qwen3-0.6b's
+    prefill and one decode step at position 1,055; rwkv6-3b's prefill),
+    against their plain versions, timed beside SDPA."""
+    from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attn.ops import heads_first
+    from repro_torch.kernels.flash_attn.ref import flash_attention_plain
+    from repro_torch.kernels.wkv.kernel import wkv_cuda
+    from repro_torch.kernels.wkv.ref import wkv_plain
+    from repro_torch.testing import flash_close, wkv_close
+
+    errs = {}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for dtype in (torch.bfloat16, torch.float32):
+        for case, sq, skv, causal in (("prefill", LM_PROMPT, LM_PROMPT, True),
+                                      ("decode", 1, LM_PROMPT + 31, False)):
+            q, _, _ = flash_qkv(dev, 1, sq, 16, 8, 128, seed=sq)
+            _, k, v = flash_qkv(dev, 1, skv, 16, 8, 128, seed=skv + 1)
+            q, k, v = (x.to(dtype) for x in (q, k, v))
+            qf, kf, vf = heads_first(q), heads_first(k), heads_first(v)
+            kw = dict(causal=causal, sm_scale=128 ** -0.5)
+            got = flash_attention_cuda(qf, kf, vf, **kw)
+            err, used = flash_close(got, flash_attention_plain(qf, kf, vf, **kw))
+            errs[dtype] = max(errs.get(dtype, 0.0), err)
+            ms = cuda_ms(lambda: flash_attention_cuda(qf, kf, vf, **kw), reps=20)
+            plain_ms = cuda_ms(lambda: flash_attention_plain(qf, kf, vf, **kw), reps=5)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True),
+                                 reps=20)
+            flops = 4.0 * 128 * visible_pairs(sq, skv, causal, 0) * 16
+            if dtype == torch.bfloat16:
+                b_ms, b_by = bound(flops, nbytes(qf, kf, vf, got), name, dtype)
+            else:
+                b_ms, b_by = bound(3 * flops, nbytes(qf, kf, vf, got), name, "tf32")
+            print(f"phase 14 (f) flash_attn {str(dtype)[6:]} qwen3-0.6b {case} (Sq {sq}, Skv "
+                  f"{skv}, H 16, KVH 8, hd 128, causal {causal}): max|d| {err:.3e} tol used "
+                  f"{used:.3f}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+                  f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    r, k, v, lw, u = wkv_inputs(dev, (1, LM_PROMPT, 40, 64), (40, 64), -6.0, seed=14)
+    flat = [x.transpose(1, 2).reshape(40, LM_PROMPT, 64).contiguous() for x in (r, k, v, lw)]
+    got = wkv_cuda(*flat, u.contiguous(), chunk=128)
+    err, used = wkv_close(got, wkv_plain(*flat, u, chunk=128))
+    errs["wkv"] = err
+    ms = cuda_ms(lambda: wkv_cuda(*flat, u.contiguous(), chunk=128), reps=20)
+    plain_ms = cuda_ms(lambda: wkv_plain(*flat, u, chunk=128), reps=5)
+    b_ms, b_by = bound(wkv_flops(40, LM_PROMPT, 64, 128), nbytes(*flat, u, got), name)
+    print(f"phase 14 (f) wkv f32 rwkv6-3b prefill (B·H 40, T {LM_PROMPT}, K 64, chunk 128): "
+          f"max|d| {err:.3e} tol used {used:.3f}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by})")
+    return errs
+
+
+def phase14(smi, name, root, dev, reset_counts, counters):
+    """Returns ({counter: main-path launches}, {bf16 | f32 | wkv: worst |d| of
+    the kernels at the main path's shapes})."""
+    from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda
+    from repro_torch.kernels.wkv.kernel import wkv_cuda
+
+    t_phase = time.perf_counter()
+    launches = {"flash_f32": 0, "flash_bf16": 0, "wkv": 0}
+    for label, arch, dtype, batch, n_req, max_new in LM_RUNS:
+        got, _ = phase14_serve(smi, dev, label, arch, dtype, batch, n_req, max_new,
+                               reset_counts, counters)
+        if arch == "rwkv6-3b":
+            launches["wkv"] += got[wkv_cuda]
+        else:
+            launches["flash_bf16" if dtype == "bfloat16" else "flash_f32"] += \
+                got[flash_attention_cuda]
+    assert launches == {"flash_f32": 1792, "flash_bf16": 7168, "wkv": 128}, launches
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    for label, cmd in (
+            ("(d) python -m repro_torch.launch.serve --arch qwen3-0.6b",
+             [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "qwen3-0.6b"]),
+            ("(e) examples/torch_knnlm_serve.py",
+             [sys.executable, os.path.join(root, "examples", "torch_knnlm_serve.py")])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env, cwd=root)
+        assert proc.returncode == 0, (label, proc.stdout[-2000:], proc.stderr[-4000:])
+        lines = proc.stdout.strip().splitlines()
+        if label.startswith("(d)"):
+            out = json.loads(lines[-1])
+            assert set(out) == SERVE_KEYS, sorted(out)
+            assert out["completed"] == out["requests"] == 8, out
+            shown = lines[-1]
+        else:
+            shown = next(line for line in lines if line.startswith("summary:"))
+            assert json.loads(shown[len("summary:"):])["query_index_builds"] == 0, shown
+        print(f"phase 14 {label}: exit 0 in {time.perf_counter() - t0:.1f} s (a process of "
+              f"its own), {shown}")
+    errs = phase14_kernels(dev, name)
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s; main-path launches flash_attn f32 "
+          f"{launches['flash_f32']}, bf16 {launches['flash_bf16']}, wkv {launches['wkv']}")
+    return launches, errs
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3089,6 +3398,13 @@ def main():
                             store_queries, yeast, reset_counts)
     del yeast, store_queries
 
+    # phase 14: the LM serving path at full width (counts from 0 around each
+    # main-path run)
+    lm_launches, lm_errs = phase14(smi, name, root, torch.device("cuda", 0), reset_counts,
+                                   counters)
+    flash_line["max_abs_err"] = max(flash_line["max_abs_err"], lm_errs[torch.float32])
+    flash_bf16_line["max_abs_err"] = max(flash_bf16_line["max_abs_err"], lm_errs[torch.bfloat16])
+
     print(json.dumps({"kernels": [
         {
             "name": "knn_topk",
@@ -3137,7 +3453,7 @@ def main():
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
             "replaces": "src/repro/kernels/flash_attn/kernel.py:36",
-            "launches": flash_f32_launches,
+            "launches": flash_f32_launches + lm_launches["flash_f32"],   # phases 7, 14
             **{key: flash_line[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms")},
         },
@@ -3146,7 +3462,7 @@ def main():
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
             "replaces": "src/repro/kernels/flash_attn/kernel.py:36",
-            "launches": flash_bf16_launches,
+            "launches": flash_bf16_launches + lm_launches["flash_bf16"],   # phases 7, 14
             **{key: flash_bf16_line[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                      "bound_by", "library_ms")},
         },
@@ -3155,7 +3471,9 @@ def main():
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/wkv.cu",
             "replaces": "src/repro/kernels/wkv/kernel.py:37",
-            **wkv_line,   # library_ms null: no single PyTorch call computes WKV
+            **dict(wkv_line, launches=wkv_line["launches"] + lm_launches["wkv"],   # phases 8, 14
+                   max_abs_err=max(wkv_line["max_abs_err"], lm_errs["wkv"])),
+            # library_ms null: no single PyTorch call computes WKV
         },
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

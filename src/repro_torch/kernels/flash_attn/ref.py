@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.attention import NEG
+NEG = -1e30   # a masked score; models/attention.py imports it from here
 
 
 def flash_attention_plain(

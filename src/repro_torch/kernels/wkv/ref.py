@@ -8,7 +8,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.rwkv6 import CLAMP
+CLAMP = 30.0  # max |log| of the intra-chunk inverse decay factor; models/rwkv6.py imports it
 
 
 def wkv_plain(r, k, v, lw, u, chunk: int = 128):

@@ -50,6 +50,7 @@ def test_quickstart_api():
 @pytest.mark.parametrize("example,args", [
     ("torch_quickstart.py", []),
     ("torch_peptide_search.py", ["--nr", "100", "--ns", "600"]),
+    ("torch_knnlm_serve.py", []),
 ])
 def test_example_runs_on_the_cpu(example, args):
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
@@ -59,5 +60,7 @@ def test_example_runs_on_the_cpu(example, args):
     assert proc.returncode == 0, proc.stderr
     if example == "torch_quickstart.py":
         assert "matches dense oracle: True" in proc.stdout
+    elif example == "torch_knnlm_serve.py":
+        assert '"query_index_builds": 0' in proc.stdout
     else:
         assert "spectrum 0:" in proc.stdout

@@ -12,7 +12,11 @@ join kernels held to their plain versions on masked columns, and the
 sharded store (4 shards, exact and approx, and 2 replicas through a
 failover) against its CPU path, its merges counted on topk_merge_cuda,
 and the multi-device join: the ring and the store over meshes that
-repeat the card (and, where there are two cards, over distinct ones).
+repeat the card (and, where there are two cards, over distinct ones),
+and the LM serving path: the reduced qwen3-0.6b and rwkv6-3b on the card
+(attention in flash_attn, the chunked time mix in wkv) against their CPU
+path, the decode's key cut, a kernel refusal raising through the model,
+the Server in bf16.
 Every test here needs a CUDA device and skips without one.  The file imports neither jax
 nor repro, so it runs on a machine with the card alone:
 
@@ -1326,3 +1330,133 @@ def test_ring_and_mesh_store_over_two_cards(cuda, monkeypatch):
     devices = [torch.device("cuda", i % n) for i in range(8)]
     _ring_on(devices, monkeypatch)
     _mesh_store_on(devices[:4])
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path: the model's attention through flash_attn, its
+# chunked time mix through wkv
+# ---------------------------------------------------------------------------
+
+def _lm_on(cfg, device, kernels=True):
+    """The reduced model with the weights of a CPU-drawn seed, on ``device``."""
+    from repro_torch.models import model as M
+
+    cpu = M.init_params(torch.Generator().manual_seed(4), cfg, kernels=kernels)
+    if torch.device(device).type == "cpu":
+        return cpu
+    lm = M.LM(cfg, device=device, kernels=kernels)
+    lm.load_state_dict(cpu.state_dict())
+    return lm
+
+
+def _lm_run(lm, cfg, tokens, n_prompt):
+    """prefill of ``n_prompt`` tokens then one decode step a token: every
+    step's logits (B, V) on the host."""
+    from repro_torch.models import model as M
+
+    cache = M.make_serve_cache(cfg, tokens.shape[0], 32, device=lm.device)
+    logits, cache = M.prefill(lm, cfg, {"tokens": tokens[:, :n_prompt]}, cache)
+    out = [logits[:, 0].cpu()]
+    for t in range(n_prompt, tokens.shape[1]):
+        logits, cache = M.decode_step(lm, cfg, tokens[:, t:t + 1], cache, t)
+        out.append(logits[:, 0].cpu())
+    return out
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-3b"])
+def test_lm_prefill_decode_on_card_matches_cpu(cuda, arch):
+    """The reduced model (f32) on the card, its attention in flash_attn and
+    its chunked time mix in wkv, against its CPU path (the plain versions):
+    logits within the kernel's tolerance, greedy tokens equal, and one
+    launch a layer for each prefill (and, qwen, each decode step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.testing import FLASH_TOL, WKV_TOL, close_within
+
+    cfg = get_config(arch).reduced()
+    tokens = np.random.default_rng(9).integers(0, cfg.vocab_size, (2, 14)).astype(np.int32)
+    counter = flash_attention_cuda if cfg.family == "dense" else wkv_cuda
+    want = _lm_run(_lm_on(cfg, "cpu"), cfg, tokens, 9)
+    before = counter.launches
+    got = _lm_run(_lm_on(cfg, cuda), cfg, tokens, 9)
+    calls = 6 if cfg.family == "dense" else 1          # the rwkv decode is the exact recurrence
+    assert counter.launches - before == calls * cfg.num_layers
+    rtol, atol = (FLASH_TOL if cfg.family == "dense" else WKV_TOL)[torch.float32]
+    for g, w in zip(got, want):
+        close_within(g, w, rtol, atol)
+        assert torch.equal(g.argmax(-1), w.argmax(-1))
+
+
+def test_lm_decode_slices_keys_not_causal(cuda):
+    """A decode step against a cached prefix: the kernel route (the keys up
+    to the position, causal=False) equals _sdpa with the reference's mask
+    on the card; the kernel's causal mask with Sq = 1 would see key 0 only."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import Attention, self_attention
+    from repro_torch.testing import flash_close
+
+    cfg = get_config("qwen3-0.6b").reduced()
+    plain = Attention(torch.Generator(cuda).manual_seed(0), cfg)
+    plain.kernels = False
+    flash = Attention(None, cfg, device=cuda)
+    flash.load_state_dict(plain.state_dict())
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((2, 1, cfg.d_model)).astype(np.float32)).to(cuda)
+    kv = rng.standard_normal((2, 24, cfg.num_kv_heads, cfg.resolved_head_dim)).astype(np.float32)
+    pos = 17
+    out = {}
+    for name, p in (("flash", flash), ("plain", plain)):
+        cache = {"k": torch.from_numpy(kv).to(cuda), "v": torch.from_numpy(kv[::-1].copy()).to(cuda)}
+        before = flash_attention_cuda.launches
+        out[name], cache = self_attention(p, cfg, x, torch.full((1, 1), pos, device=cuda),
+                                          cache=cache, cache_pos=pos)
+        assert flash_attention_cuda.launches - before == (name == "flash")
+    flash_close(out["flash"], out["plain"])
+    q = torch.from_numpy(rng.standard_normal((2, 1, 4, 16)).astype(np.float32)).to(cuda)
+    k = torch.from_numpy(kv[:, :pos + 1, :2, :16].copy()).to(cuda)
+    want = _sdpa(q, k, k, None)
+    flash_close(flash_sdpa(q, k, k, causal=False, device=cuda), want)
+    with pytest.raises(AssertionError):
+        flash_close(flash_sdpa(q, k, k, causal=True, device=cuda), want)
+
+
+def test_lm_kernel_refusal_raises_through_self_attention(cuda):
+    """No fallback on the card: a head width the kernels do not take (512 >
+    256) raises from flash_attention_cuda through self_attention; the
+    plain route (kernels=False) computes it."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import Attention, self_attention
+
+    cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(), head_dim=512)
+    p = Attention(torch.Generator(cuda).manual_seed(0), cfg)
+    x = torch.randn((1, 4, cfg.d_model), device=cuda)
+    pos = torch.arange(4, device=cuda)[None, :]
+    with pytest.raises(ValueError, match="head width 512"):
+        self_attention(p, cfg, x, pos)
+    p.kernels = False
+    y, _ = self_attention(p, cfg, x, pos)
+    assert bool(torch.isfinite(y).all())
+
+
+def test_lm_server_on_card(cuda):
+    """The port's Server on the card, the reduced qwen3-0.6b and rwkv6-3b in
+    bf16 (the published dtype): every request completes, slots turn over."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Request, Server
+
+    for arch in ("qwen3-0.6b", "rwkv6-3b"):
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="bfloat16")
+        srv = Server(cfg, batch=2, max_seq=64, device=cuda, seed=1)
+        rng = np.random.default_rng(0)
+        reqs = [Request(i, rng.integers(0, 256, 20).astype(np.int32), max_new=4)
+                for i in range(3)]
+        pending = list(reqs)
+        while pending or srv.occupancy():
+            while pending and srv.admit(pending[0]):
+                pending.pop(0)
+            srv.step()
+        assert sorted(r.rid for r in srv.finished) == [0, 1, 2]
+        assert all(len(r.out) == 4 for r in reqs)

@@ -43,7 +43,10 @@ def test_the_guard_covers_the_port():
     port = ROOT / "src" / "repro_torch"
     for rel in ("core/engine.py", "core/lsh.py", "obs/__init__.py", "obs/registry.py",
                 "obs/trace.py", "obs/recorder.py", "core/ring.py", "launch/join_job.py",
-                "launch/mesh.py", "launch/sharding.py", "configs/paper_knn.py"):
+                "launch/mesh.py", "launch/sharding.py", "configs/paper_knn.py",
+                "configs/base.py", "models/layers.py", "models/attention.py", "models/rwkv6.py",
+                "models/transformer.py", "models/model.py", "models/convert.py",
+                "launch/steps.py", "launch/serve.py"):
         assert port / rel in FILES, rel
-    for rel in ("torch_quickstart.py", "torch_peptide_search.py"):
+    for rel in ("torch_quickstart.py", "torch_peptide_search.py", "torch_knnlm_serve.py"):
         assert ROOT / "examples" / rel in FILES, rel
