@@ -207,7 +207,28 @@ and the LM serving path at full published width and depth:
            0; the JAX CLI's JSON keys; the example's summary line); (f) the
            flash_attn and wkv wrappers at the main path's shapes (qwen3-0.6b
            prefill and a decode step, rwkv6-3b prefill) against their plain
-           versions, timed beside SDPA and their bounds.
+           versions, timed beside SDPA and their bounds;
+  phase 15 the other families through Server, full published widths:
+           (a) olmoe-1b-7b bf16, 4 requests of 1,024 x max_new 16; (a')
+           the same in f32 (3xTF32), 2 requests; (b) phi3.5-moe bf16 with
+           its depth cut 32 -> 4 (its bf16 weights do not fit one card),
+           2 x 1,024 x 8; (c) recurrentgemma-2b bf16, prompts of 1,024,
+           3,000 (past the 2,048 window) and 1,024 on 2 slots, x 32; (d)
+           llama-3.2-vision-11b bf16, 2 x 1,024 x 16 on the zero stub
+           patches, then one request on N(0, 1) patches with the cross
+           gates at 0.5; (e) whisper-medium bf16, 4 x 256 x 32 (max_seq
+           448) on zero frames, then one on N(0, 1) frames.  Every
+           flash_attn launch asserted (an attention core a prefill and a
+           decode step, testing.attention_calls); each run replayed with
+           kernels=False (MoE: each call rerun with the kernels and
+           replayed from copies of its cache, routed to the kernel route's
+           experts, the plain route's own expert flips counted and their
+           router gaps held to the rounding; the logits held to phase 14's
+           tolerance or 4x the spread between the plain route and one
+           with an f32 attention core); a torch.profiler reading of (a)
+           and (c); (f) `python -m repro_torch.launch.serve --arch
+           recurrentgemma-2b` as a process; (g) flash_attn at phase 15's
+           shapes against its plain version, timed beside SDPA.
 
 Every flash_attn and wkv comparison goes through repro_torch.testing
 (flash_close, wkv_close: one tolerance table with the card tests) and
@@ -219,6 +240,7 @@ f32 3xTF32 kernel and its bf16 kernel), and as its last line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero; with
 no CUDA device it exits 1 and prints no result.
 """
+import contextlib
 import json
 import os
 import re
@@ -2796,34 +2818,139 @@ SERVE_KEYS = {"arch", "requests", "completed", "decode_steps", "wall_s", "tok_pe
 def lm_tolerance(cfg, want):
     unit = 2.0 ** -8 if cfg.dtype == "bfloat16" else 1e-5
     rms = float(want.float().pow(2).mean().sqrt())
-    return LM_TOL_FACTOR * cfg.num_layers ** 0.5 * unit * rms
+    return LM_TOL_FACTOR * lm_depth(cfg) ** 0.5 * unit * rms
 
 
-def phase14_serve(smi, dev, label, arch, dtype, batch, n_req, max_new, reset_counts, counters):
-    """One run of Server on the card and its replay with kernels=False.
-    Returns ({counter: launches}, max |d| of the logits)."""
+def lm_depth(cfg):
+    """The layers a token's hidden state passes (audio: the encoder's too)."""
+    return cfg.num_layers + cfg.num_encoder_layers
+
+
+class RouteLog:
+    """Wraps the port's MoE routing (repro_torch.models.moe.route, which
+    moe_ffn calls by name) while it lives.  While ``sink`` is a list, each
+    routed layer appends (the experts it chose, sorted, and the router's
+    probabilities); while ``forced`` holds one expert choice a layer, each
+    layer routes to those experts instead, gated by its own probabilities
+    of them (renormalised, as route does).  Test code of this script, not a
+    knob of the package."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.orig, self.sink, self.forced = moe, moe.route, None, None
+
+        def route(p, cfg, xf):
+            probs, top_p, top_e = self.orig(p, cfg, xf)
+            if self.sink is not None:
+                self.sink.append((top_e.sort(-1).values, probs.clone()))
+            if self.forced is not None:
+                top_e = self.forced.pop(0)
+                top_p = probs.gather(-1, top_e)
+                top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+            return probs, top_p, top_e
+
+        moe.route = route
+
+    def close(self):
+        self.moe.route = self.orig
+
+
+class F32AttentionCore:
+    """While entered, the plain route's attention core
+    (repro_torch.models.attention._sdpa, called by name) computes in f32 and
+    rounds its output once: another rounding of the same function, the
+    measure of how far the model carries one rounding of its attention."""
+
+    def __enter__(self):
+        from repro_torch.models import attention
+
+        self.mod, self.orig = attention, attention._sdpa
+        attention._sdpa = lambda q, k, v, mask: self.orig(q.float(), k.float(), v.float(),
+                                                          mask).to(q.dtype)
+
+    def __exit__(self, *exc):
+        self.mod._sdpa = self.orig
+
+
+# a MoE call's logits are held to MOE_SPREAD_MARGIN x the spread between the
+# plain route and the plain route with an f32 attention core (where that is
+# above lm_tolerance): at the reference's init (moe_init draws the experts
+# at 1/sqrt(E)) each MoE layer's output is ~10^2 the residual's scale and
+# nearly quadratic in its input, so a rounding of the first layers' attention
+# reaches the logits multiplied layer by layer, which the sqrt(L) of
+# lm_tolerance does not count.  The kernel rounds less than the plain route
+# (f32 scores), more than the f32 core (bf16 P): its distance from the plain
+# route is at most about that spread; 4 is phase 14's margin.
+MOE_SPREAD_MARGIN = 4.0
+
+
+def route_flip(cfg, kernel, plain, alt):
+    """None if every layer's plain route chose the experts the kernel route
+    chose, for every token; else (layer, the router's logit gap between its
+    k-th and (k+1)-th expert at a flipped token, that gap's tolerance) for
+    the flip nearest its tolerance.  The tolerance is lm_tolerance's at the
+    layer's depth in units of the router logits' spread, or MOE_SPREAD_MARGIN
+    x the largest change of a router logit of that layer between the plain
+    route and the f32 attention core, if larger: a flip is a near tie the
+    routes' rounding may break either way only within it."""
+    unit = 2.0 ** -8 if cfg.dtype == "bfloat16" else 1e-5
+    k = cfg.num_experts_per_tok
+    worst = None
+    for layer, ((e_ker, _), (e_pl, p_pl), (_, p_alt)) in enumerate(zip(kernel, plain, alt)):
+        differ = (e_ker != e_pl).any(-1)
+        if not bool(differ.any()):
+            continue
+        logp = p_pl.clamp_min(1e-30).log()
+        shift = logp - p_alt.clamp_min(1e-30).log()
+        spread = float((shift - shift.mean(-1, keepdim=True)).abs().max())
+        logp = logp[differ]
+        top = logp.sort(-1, descending=True).values
+        gap = top[:, k - 1] - top[:, k]
+        tol = torch.clamp(LM_TOL_FACTOR * (layer + 1) ** 0.5 * unit * logp.std(-1),
+                          min=MOE_SPREAD_MARGIN * spread)
+        i = int(torch.argmax(gap / tol))
+        if worst is None or float(gap[i] / tol[i]) > worst[1] / worst[2]:
+            worst = (layer, float(gap[i]), float(tol[i]))
+    return worst
+
+
+def lm_serve(smi, dev, phase, label, cfg, batch, prompts, max_new, max_seq, reset_counts,
+             counters, profile=True, routes=None):
+    """One run of Server on the card (``prompts``: each request's prompt
+    length, seeded tokens; vlm and audio on the Server's stub patches and
+    frames) and its replay with kernels=False on the same weights, each call
+    from the replay's own caches.  With a RouteLog (MoE) the replay runs each
+    call from one state three times: with the kernels, then on copies of the
+    cache with kernels=False and with kernels=False and an f32 attention
+    core, both routed to the experts the kernel route chose, and carries the
+    kernel route's caches on.  A layer whose own plain routing differs is a
+    flip: counted, its gap held to route_flip's tolerance; the logits are
+    held to lm_tolerance or MOE_SPREAD_MARGIN x the two plain routes'
+    distance, the larger.  Returns ({counter: launches}, max |d| of the
+    logits, the model)."""
     import collections
-    import dataclasses
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda
     from repro_torch.kernels.wkv.kernel import wkv_cuda
     from repro_torch.launch.serve import Request, Server
     from repro_torch.models import model as M
+    from repro_torch.testing import attention_calls
 
-    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+    dtype = cfg.dtype
+    n_req = len(prompts)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    srv = Server(cfg, batch, LM_MAX_SEQ, device=dev, seed=LM_SEED)
+    srv = Server(cfg, batch, max_seq, device=dev, seed=LM_SEED)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     weights = nbytes(*srv.params.parameters())
     rng = np.random.default_rng(LM_SEED)
-    reqs = [Request(i, rng.integers(0, cfg.vocab_size, LM_PROMPT).astype(np.int32), max_new)
-            for i in range(n_req)]
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, n).astype(np.int32), max_new)
+            for i, n in enumerate(prompts)]
 
-    calls = []   # (kind, slot, rid, tokens, pos, logits of the last position, ms)
+    calls = []   # (kind, slot, rid, batch or token, pos, logits of the last position, ms)
     prefill, decode = srv.prefill, srv.decode
 
     def slot_of(cache):
@@ -2834,8 +2961,8 @@ def phase14_serve(smi, dev, label, arch, dtype, batch, n_req, max_new, reset_cou
         logits, out = prefill(params, batch_, cache)
         torch.cuda.synchronize()
         rid = sum(c[0] == "prefill" for c in calls)   # admitted in request order
-        calls.append(("prefill", slot_of(cache), rid, batch_["tokens"].clone(), None,
-                      logits[0, -1].clone(), (time.perf_counter() - t) * 1e3))
+        calls.append(("prefill", slot_of(cache), rid, {k: v.clone() for k, v in batch_.items()},
+                      None, logits[0, -1].clone(), (time.perf_counter() - t) * 1e3))
         return logits, out
 
     def rec_decode(params, token, cache, pos):
@@ -2862,22 +2989,24 @@ def phase14_serve(smi, dev, label, arch, dtype, batch, n_req, max_new, reset_cou
     f32_launches = flash_attention_cuda.f32_mma_launches
     held, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
     L = cfg.num_layers
-    if cfg.family == "dense":
-        expected = n_req * L + n_req * (max_new - 1) * L   # a launch a layer a prefill and a step
+    if cfg.family == "ssm":
+        counter, expected = wkv_cuda, n_req * L   # the chunked prefill; decode is exact
+        assert launches[wkv_cuda] == expected, (label, launches, expected)
+    else:   # a launch an attention core a prefill and a decode step
+        counter = flash_attention_cuda
+        expected = n_req * (attention_calls(cfg, prefill=True)
+                            + (max_new - 1) * attention_calls(cfg, prefill=False))
         got = bf16_launches if dtype == "bfloat16" else f32_launches
         assert launches[flash_attention_cuda] == got == expected, (label, launches, expected)
         assert bf16_launches + f32_launches == expected
-    else:
-        expected = n_req * L                               # the chunked prefill; decode is exact
-        assert launches[wkv_cuda] == expected, (label, launches, expected)
-    assert all(n == 0 for fn, n in launches.items()
-               if fn is not (flash_attention_cuda if cfg.family == "dense" else wkv_cuda)), launches
+    assert all(n == 0 for fn, n in launches.items() if fn is not counter), launches
     assert sorted(r.rid for r in srv.finished) == list(range(n_req))
     assert all(len(r.out) == max_new for r in reqs)
     total = sum(len(r.out) for r in reqs)
-    print(f"phase 14 ({label}) {cfg.name} {dtype} on {smi}: Server(batch={batch}, "
-          f"max_seq={LM_MAX_SEQ}) built in {init_s:.2f} s ({weights / 2**30:.3f} GiB of "
-          f"weights); {n_req} requests of {LM_PROMPT} prompt tokens x max_new {max_new} in "
+    shown = str(prompts[0]) if len(set(prompts)) == 1 else "/".join(map(str, prompts))
+    print(f"phase {phase} ({label}) {cfg.name} {dtype} on {smi}: Server(batch={batch}, "
+          f"max_seq={max_seq}) built in {init_s:.2f} s ({weights / 2**30:.3f} GiB of "
+          f"weights); {n_req} requests of {shown} prompt tokens x max_new {max_new} in "
           f"{wall:.3f} s, {total / wall:.1f} tokens/s, latency {srv.latency_summary()}; device "
           f"memory held {held / 2**30:.3f} GiB, peak {peak / 2**30:.3f} GiB")
     for r in reqs:
@@ -2893,17 +3022,53 @@ def phase14_serve(smi, dev, label, arch, dtype, batch, n_req, max_new, reset_cou
     # the replay: the same calls, the same weights (shared), kernels=False
     plain = M.LM(cfg, device="meta", kernels=False)
     plain.load_state_dict(srv.params.state_dict(), assign=True)
-    caches = [M.make_serve_cache(cfg, 1, LM_MAX_SEQ, device=dev) for _ in range(batch)]
+    caches = [M.make_serve_cache(cfg, 1, max_seq, device=dev) for _ in range(batch)]
     reset_counts()
     t0 = time.perf_counter()
-    worst, used, checked, ties, same = 0.0, 0.0, 0, 0, 0
-    for kind, s, rid, tokens, pos, got, _ in calls:
+    worst, used, checked, ties, same, rerun = 0.0, 0.0, 0, 0, 0, 0.0
+    flips = []
+
+    def call(model, kind, inp, pos, cache):
         if kind == "prefill":
-            want, caches[s] = M.prefill(plain, cfg, {"tokens": tokens}, caches[s])
+            return M.prefill(model, cfg, inp, cache)
+        return M.decode_step(model, cfg, inp, cache, pos)
+
+    def copy(cache):
+        return {k: (v.clone() if torch.is_tensor(v) else {n: x.clone() for n, x in v.items()})
+                for k, v in cache.items()}
+
+    spread_tols = 0
+    for kind, s, rid, inp, pos, got, _ in calls:
+        spread = 0.0
+        if routes is None:
+            want, caches[s] = call(plain, kind, inp, pos, caches[s])
         else:
-            want, caches[s] = M.decode_step(plain, cfg, tokens, caches[s], pos)
+            snaps = (copy(caches[s]), copy(caches[s]))
+            routes.sink = []
+            again, caches[s] = call(srv.params, kind, inp, pos, caches[s])
+            rerun = max(rerun, float((again[0, -1] - got).abs().max()))
+            got, kernel_routes = again[0, -1], routes.sink
+            sinks = []
+            for snap, core in zip(snaps, (contextlib.nullcontext(), F32AttentionCore())):
+                routes.sink, routes.forced = [], [e for e, _ in kernel_routes]
+                with core:
+                    out, _ = call(plain, kind, inp, pos, snap)
+                sinks.append(routes.sink)
+                if not sinks[1:]:
+                    want = out
+                else:
+                    spread = float((out[0, -1] - want[0, -1]).abs().max())
+            routes.sink = routes.forced = None
+            del snaps
+            flip = route_flip(cfg, kernel_routes, *sinks)
+            if flip is not None:
+                layer, gap, gap_tol = flip
+                flips.append((kind, rid, pos, layer, gap, gap_tol))
+                assert gap <= gap_tol, ("a flip past the rounding", label, kind, rid, pos, flip)
         want = want[0, -1]
         tol = lm_tolerance(cfg, want)
+        if MOE_SPREAD_MARGIN * spread > tol:
+            tol, spread_tols = MOE_SPREAD_MARGIN * spread, spread_tols + 1
         err = float((got - want).abs().max())
         assert err <= tol, (label, kind, rid, pos, err, tol)
         worst, used = max(worst, err), max(used, err / tol)
@@ -2916,13 +3081,14 @@ def phase14_serve(smi, dev, label, arch, dtype, batch, n_req, max_new, reset_cou
             ties += 1
     torch.cuda.synchronize()
     replay_s = time.perf_counter() - t0
-    assert all(fn.launches == 0 for fn in counters), "the replay launched a kernel"
+    # the replay launches nothing of its own (MoE: the kernel route's rerun, as the run)
+    assert all(fn.launches == (launches[fn] if routes is not None else 0)
+               for fn in counters), "the replay's launches"
     # one prefill and one decode step under torch.profiler: the device's busy
     # time beside the call's wall (host clock through a synchronize)
-    for what, fn in (("prefill", lambda: prefill(srv.params, {"tokens": calls[0][3]},
-                                                 srv.slot_cache[0])),
+    for what, fn in (("prefill", lambda: prefill(srv.params, calls[0][3], srv.slot_cache[0])),
                      ("decode step", lambda: decode(srv.params, calls[-1][3], srv.slot_cache[0],
-                                                    LM_PROMPT + max_new))):
+                                                    prompts[0] + max_new))) if profile else ():
         fn()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -2935,13 +3101,24 @@ def phase14_serve(smi, dev, label, arch, dtype, batch, n_req, max_new, reset_cou
         print(f"  {what} profile: device busy {busy:.3f} ms of {step_ms:.3f} ms (idle share "
               f"{1 - busy / step_ms:.3f}): {parts}")
     print(f"  replay with kernels=False ({len(calls)} calls, {replay_s:.2f} s): logits max|d| "
-          f"{worst:.3e}, tol used {used:.3f} (tol {LM_TOL_FACTOR} x sqrt({L}) x "
-          f"{'2^-8' if dtype == 'bfloat16' else '1e-5'} x RMS); greedy token equal at "
-          f"{checked} calls whose top-two gap exceeds 2 x tol, {ties} near ties skipped; "
-          f"equal at {same} of the {len(calls)} calls in all")
+          f"{worst:.3e}, tol used {used:.3f} (tol {LM_TOL_FACTOR} x sqrt({lm_depth(cfg)}) x "
+          f"{'2^-8' if dtype == 'bfloat16' else '1e-5'} x RMS"
+          + (f", or {MOE_SPREAD_MARGIN} x the plain routes' spread, larger at {spread_tols} "
+             "calls" if routes is not None else "")
+          + f"); greedy token equal at {checked} calls whose top-two gap exceeds 2 x tol, "
+          f"{ties} near ties skipped; equal at {same} of the {len(calls)} calls in all")
+    if routes is not None:
+        print(f"  MoE routing (each call run again with the kernels, the plain routes routed to "
+              f"its experts; the rerun's logits max|d| from the run's {rerun:.3e}): "
+              f"{len(flips)} of {len(calls)} calls where the plain route's own choice differs "
+              f"in some layer"
+              + "".join(f"; {kind} of request {rid}{'' if pos is None else f' at {pos}'}: "
+                        f"layer {layer}, router logit gap {gap:.3e} <= tol {gap_tol:.3e}"
+                        for kind, rid, pos, layer, gap, gap_tol in flips[:8]))
+    params = srv.params
     del srv, plain, caches, calls
     torch.cuda.empty_cache()
-    return launches, worst
+    return launches, worst, params
 
 
 def phase14_kernels(dev, name):
@@ -2999,14 +3176,19 @@ def phase14_kernels(dev, name):
 def phase14(smi, name, root, dev, reset_counts, counters):
     """Returns ({counter: main-path launches}, {bf16 | f32 | wkv: worst |d| of
     the kernels at the main path's shapes})."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda
     from repro_torch.kernels.wkv.kernel import wkv_cuda
 
     t_phase = time.perf_counter()
     launches = {"flash_f32": 0, "flash_bf16": 0, "wkv": 0}
     for label, arch, dtype, batch, n_req, max_new in LM_RUNS:
-        got, _ = phase14_serve(smi, dev, label, arch, dtype, batch, n_req, max_new,
-                               reset_counts, counters)
+        cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+        got, _, params = lm_serve(smi, dev, 14, label, cfg, batch, [LM_PROMPT] * n_req, max_new,
+                                  LM_MAX_SEQ, reset_counts, counters)
+        del params
         if arch == "rwkv6-3b":
             launches["wkv"] += got[wkv_cuda]
         else:
@@ -3036,6 +3218,205 @@ def phase14(smi, name, root, dev, reset_counts, counters):
     errs = phase14_kernels(dev, name)
     print(f"phase 14: {time.perf_counter() - t_phase:.1f} s; main-path launches flash_attn f32 "
           f"{launches['flash_f32']}, bf16 {launches['flash_bf16']}, wkv {launches['wkv']}")
+    return launches, errs
+
+
+# phase 15: the remaining serving families at full published width, through
+# the entry points a user calls (src/repro_torch/launch/serve.py::Server),
+# random weights from LM_SEED, seeded prompts; every attention (self,
+# local, cross, encoder) in flash_attn.  src/repro/configs/: olmoe_1b_7b.py
+# (16 layers, d 2,048, H = KVH 16, hd 128, 64 experts of ff 1,024, top 8,
+# vocab 50,304); phi35_moe.py (d 4,096, H 32, KVH 8, 16 experts of ff
+# 6,400, top 2, vocab 32,064; 32 layers, cut to 4: 84 GB of bf16 weights do
+# not fit one 80 GB card); recurrentgemma_2b.py (26 layers: 8 units of
+# (rglru, rglru, local attn) and a tail of 2 rglru; d 2,560, H 10, KVH 1,
+# hd 256, window 2,048, ff 7,680, vocab 256,000); llama32_vision_11b.py (40
+# layers: 8 units of 4 self layers and a gated cross layer onto 1,601 patch
+# keys; d 4,096, H 32, KVH 8, ff 14,336, vocab 128,256); whisper_medium.py
+# (24 encoder layers over 1,500 frames, 24 decoder layers with self and
+# cross attention; d 1,024, H = KVH 16, hd 64, vocab 51,865; 448 = its
+# published decoder context).  Cut: request counts and max_new, and
+# phi3.5-moe's depth; never a width.
+LM15_RUNS = (  # label, arch, dtype, slots, prompt lengths, max_new, max_seq, layers, profile
+    ("a", "olmoe-1b-7b", "bfloat16", 4, (1024,) * 4, 16, 2048, None, True),
+    ("a'", "olmoe-1b-7b", "float32", 2, (1024,) * 2, 16, 2048, None, False),
+    ("b", "phi3.5-moe-42b-a6.6b", "bfloat16", 2, (1024,) * 2, 8, 2048, 4, False),
+    # the 3,000-token prefill passes the 2,048 window; its decode wraps the slots
+    ("c", "recurrentgemma-2b", "bfloat16", 2, (1024, 3000, 1024), 32, 4096, None, True),
+    ("d", "llama-3.2-vision-11b", "bfloat16", 2, (1024,) * 2, 16, 2048, None, False),
+    ("e", "whisper-medium", "bfloat16", 4, (256,) * 4, 32, 448, None, False),
+)
+# flash_attn launches of each run: an attention core a prefill and a decode
+# step (testing.attention_calls), requests x (prefill + max_new - 1 steps)
+LM15_LAUNCHES = {"a": 4 * 16 * 16, "a'": 2 * 16 * 16, "b": 2 * 8 * 4, "c": 3 * 32 * 8,
+                 "d": 2 * 16 * 40, "e": 4 * (72 + 31 * 48)}
+# after (d) and (e): one request through prefill and decode_step on seeded
+# N(0, 1) stub inputs (vlm: patches, the cross gates at 0.5), replayed the same
+# way: (decode steps, flash_attn launches)
+LM15_DIRECT = {"d": (15, 16 * 40), "e": (31, 72 + 31 * 48)}
+LM15_GATE = 0.5
+
+
+def phase15_direct(smi, dev, label, cfg, params, prompt, n_steps, max_seq, reset_counts):
+    """One request with seeded stub inputs through M.prefill and
+    M.decode_step (greedy) on the card, then the same calls on the same
+    tokens with kernels=False; (flash_attn launches, max |d| of the logits)."""
+    from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda
+    from repro_torch.models import model as M
+    from repro_torch.testing import attention_calls
+
+    g = torch.Generator(device=dev).manual_seed(LM_SEED + 1)
+    stub = ("patches", cfg.num_patches) if cfg.family == "vlm" else ("frames", cfg.encoder_seq)
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(LM_SEED + 1).integers(
+                 0, cfg.vocab_size, (1, prompt)).astype(np.int32), device=dev),
+             stub[0]: torch.randn((1, stub[1], cfg.d_model), generator=g, device=dev)}
+    with torch.no_grad():
+        for name, p in params.named_parameters():
+            if name.endswith(".gate"):
+                p.fill_(LM15_GATE)
+    plain = M.LM(cfg, device="meta", kernels=False)
+    plain.load_state_dict(params.state_dict(), assign=True)
+    runs = {}
+    for route, model in (("kernels", params), ("plain", plain)):
+        reset_counts()
+        cache = M.make_serve_cache(cfg, 1, max_seq, device=dev)
+        t0 = time.perf_counter()
+        logits, cache = M.prefill(model, cfg, batch, cache)
+        out, tokens = [logits[0, -1]], runs.get("kernels", (None, []))[1]
+        for t in range(n_steps):
+            tok = tokens[t] if route == "plain" else int(torch.argmax(out[-1]))
+            if route == "kernels":
+                tokens.append(tok)
+            logits, cache = M.decode_step(model, cfg, torch.tensor([[tok]], device=dev), cache,
+                                          prompt + t)
+            out.append(logits[0, -1])
+        torch.cuda.synchronize()
+        runs[route] = (out, tokens, time.perf_counter() - t0, flash_attention_cuda.launches)
+    launches = runs["kernels"][3]
+    assert launches == attention_calls(cfg, True) + n_steps * attention_calls(cfg, False), launches
+    assert runs["plain"][3] == 0
+    worst, used = 0.0, 0.0
+    for step, (got, want) in enumerate(zip(runs["kernels"][0], runs["plain"][0])):
+        tol = lm_tolerance(cfg, want)
+        err = float((got - want).abs().max())
+        assert err <= tol, (label, "direct", step, err, tol)
+        worst, used = max(worst, err), max(used, err / tol)
+    print(f"phase 15 ({label}) direct on {smi}: prefill of {prompt} tokens with seeded N(0, 1) "
+          f"{stub[0]} ({stub[1]} x {cfg.d_model})"
+          + (f", the cross gates at {LM15_GATE}" if cfg.family == "vlm" else "")
+          + f", then {n_steps} decode steps: {runs['kernels'][2]:.3f} s, flash_attn launches "
+          f"{launches}; replay with kernels=False {runs['plain'][2]:.3f} s: logits max|d| "
+          f"{worst:.3e}, tol used {used:.3f}")
+    return launches, worst
+
+
+# flash_attn at the shapes phase 15's main path gives it (B 1): name, Sq, Skv,
+# H, KVH, hd, causal, window, dtypes
+LM15_FLASH = (
+    ("olmoe-1b-7b prefill", 1024, 1024, 16, 16, 128, True, 0, (torch.bfloat16, torch.float32)),
+    ("olmoe-1b-7b decode", 1, 1040, 16, 16, 128, False, 0, (torch.bfloat16, torch.float32)),
+    ("phi3.5-moe prefill (GQA 32/8)", 1024, 1024, 32, 8, 128, True, 0, (torch.bfloat16,)),
+    ("recurrentgemma-2b local prefill", 3000, 3000, 10, 1, 256, True, 2048, (torch.bfloat16,)),
+    ("recurrentgemma-2b decode (visible slots)", 1, 2048, 10, 1, 256, False, 0,
+     (torch.bfloat16,)),
+    ("llama-3.2-vision cross prefill", 1024, 1601, 32, 8, 128, False, 0, (torch.bfloat16,)),
+    ("llama-3.2-vision cross decode", 1, 1601, 32, 8, 128, False, 0, (torch.bfloat16,)),
+    ("whisper-medium encoder", 1500, 1500, 16, 16, 64, False, 0, (torch.bfloat16,)),
+    ("whisper-medium cross decode", 1, 1500, 16, 16, 64, False, 0, (torch.bfloat16,)),
+)
+
+
+def phase15_kernels(dev, name):
+    """flash_attention_cuda at phase 15's shapes against its plain version,
+    timed beside SDPA and its bound; {dtype: worst |d|}."""
+    from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attn.ops import heads_first
+    from repro_torch.kernels.flash_attn.ref import flash_attention_plain
+    from repro_torch.testing import flash_close
+
+    errs = {}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for case, sq, skv, h, kvh, hd, causal, window, dtypes in LM15_FLASH:
+        for dtype in dtypes:
+            q, _, _ = flash_qkv(dev, 1, sq, h, kvh, hd, seed=sq + hd)
+            _, k, v = flash_qkv(dev, 1, skv, h, kvh, hd, seed=skv + hd + 1)
+            q, k, v = (x.to(dtype) for x in (q, k, v))
+            qf, kf, vf = heads_first(q), heads_first(k), heads_first(v)
+            kw = dict(causal=causal, sm_scale=hd ** -0.5, window=window)
+            got = flash_attention_cuda(qf, kf, vf, **kw)
+            err, used = flash_close(got, flash_attention_plain(qf, kf, vf, **kw))
+            errs[dtype] = max(errs.get(dtype, 0.0), err)
+            ms = cuda_ms(lambda: flash_attention_cuda(qf, kf, vf, **kw), reps=20)
+            plain_ms = cuda_ms(lambda: flash_attention_plain(qf, kf, vf, **kw), reps=3)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            if window:
+                qpos, kpos = torch.arange(sq, device=dev)[:, None], torch.arange(skv, device=dev)
+                mask = (kpos <= qpos) & (kpos > qpos - window)
+                lib = lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
+            else:
+                lib = lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)  # noqa: E731
+            library_ms = cuda_ms(lib, reps=10)
+            flops = 4.0 * hd * visible_pairs(sq, skv, causal, window) * h
+            if dtype == torch.bfloat16:
+                b_ms, b_by = bound(flops, nbytes(qf, kf, vf, got), name, dtype)
+            else:
+                b_ms, b_by = bound(3 * flops, nbytes(qf, kf, vf, got), name, "tf32")
+            print(f"phase 15 (g) flash_attn {str(dtype)[6:]} {case} (Sq {sq}, Skv {skv}, H {h}, "
+                  f"KVH {kvh}, hd {hd}, causal {causal}, window {window}): max|d| {err:.3e} tol "
+                  f"used {used:.3f}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+                  f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return errs
+
+
+def phase15(smi, name, root, dev, reset_counts, counters):
+    """Returns ({"flash_f32" | "flash_bf16": main-path launches}, {dtype:
+    worst |d| of flash_attn at the main path's shapes})."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda
+
+    t_phase = time.perf_counter()
+    launches = {"flash_f32": 0, "flash_bf16": 0}
+    for label, arch, dtype, batch, prompts, max_new, max_seq, layers, profile in LM15_RUNS:
+        cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+        if layers is not None:
+            print(f"phase 15 ({label}) {arch}: depth cut {cfg.num_layers} -> {layers} layers")
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        routes = RouteLog() if cfg.family == "moe" else None
+        try:
+            got, _, params = lm_serve(smi, dev, 15, label, cfg, batch, list(prompts), max_new,
+                                      max_seq, reset_counts, counters, profile=profile,
+                                      routes=routes)
+        finally:
+            if routes is not None:
+                routes.close()
+        assert got[flash_attention_cuda] == LM15_LAUNCHES[label], (label, got)
+        key = "flash_bf16" if dtype == "bfloat16" else "flash_f32"
+        launches[key] += got[flash_attention_cuda]
+        if label in LM15_DIRECT:
+            n_steps, want = LM15_DIRECT[label]
+            n, _ = phase15_direct(smi, dev, label, cfg, params, prompts[0], n_steps, max_seq,
+                                  reset_counts)
+            assert n == want, (label, n, want)
+            launches[key] += n
+        del params
+        torch.cuda.empty_cache()
+    assert launches == {"flash_f32": 512, "flash_bf16": 11576}, launches
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+                           "recurrentgemma-2b"], capture_output=True, text=True, timeout=600,
+                          env=env, cwd=root)
+    assert proc.returncode == 0, (proc.stdout[-2000:], proc.stderr[-4000:])
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert set(out) == SERVE_KEYS, sorted(out)
+    assert out["completed"] == out["requests"] == 8, out
+    print(f"phase 15 (f) python -m repro_torch.launch.serve --arch recurrentgemma-2b: exit 0 in "
+          f"{time.perf_counter() - t0:.1f} s (a process of its own), {proc.stdout.strip()}")
+    errs = phase15_kernels(dev, name)
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s; main-path launches flash_attn f32 "
+          f"{launches['flash_f32']}, bf16 {launches['flash_bf16']}")
     return launches, errs
 
 
@@ -3405,6 +3786,13 @@ def main():
     flash_line["max_abs_err"] = max(flash_line["max_abs_err"], lm_errs[torch.float32])
     flash_bf16_line["max_abs_err"] = max(flash_bf16_line["max_abs_err"], lm_errs[torch.bfloat16])
 
+    # phase 15: the moe, hybrid, vlm and audio families at full width (counts
+    # from 0 around each main-path run)
+    fam_launches, fam_errs = phase15(smi, name, root, torch.device("cuda", 0), reset_counts,
+                                     counters)
+    flash_line["max_abs_err"] = max(flash_line["max_abs_err"], fam_errs[torch.float32])
+    flash_bf16_line["max_abs_err"] = max(flash_bf16_line["max_abs_err"], fam_errs[torch.bfloat16])
+
     print(json.dumps({"kernels": [
         {
             "name": "knn_topk",
@@ -3453,7 +3841,8 @@ def main():
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
             "replaces": "src/repro/kernels/flash_attn/kernel.py:36",
-            "launches": flash_f32_launches + lm_launches["flash_f32"],   # phases 7, 14
+            "launches": flash_f32_launches + lm_launches["flash_f32"]   # phases 7, 14, 15
+            + fam_launches["flash_f32"],
             **{key: flash_line[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms")},
         },
@@ -3462,7 +3851,8 @@ def main():
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
             "replaces": "src/repro/kernels/flash_attn/kernel.py:36",
-            "launches": flash_bf16_launches + lm_launches["flash_bf16"],   # phases 7, 14
+            "launches": flash_bf16_launches + lm_launches["flash_bf16"]   # phases 7, 14, 15
+            + fam_launches["flash_bf16"],
             **{key: flash_bf16_line[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                      "bound_by", "library_ms")},
         },

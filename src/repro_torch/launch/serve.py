@@ -3,12 +3,16 @@ JAX package's ``launch/serve.py``).
 
 Requests enter a queue, get prefilled into free cache slots, and decode
 proceeds slot by slot every step (slots finished on max-len are
-immediately refillable — continuous batching).  The model runs on the
-card unless the caller names another device: on CUDA its attention runs
-the flash attention kernel and rwkv6's chunked time mix the WKV kernel.
+immediately refillable — continuous batching).  Every model family is
+served: dense, moe, ssm, hybrid, and vlm and audio with the reference's
+stub patches and frames (zeros).  The model runs on the card unless the
+caller names another device: on CUDA every attention (self, local, cross,
+encoder) runs the flash attention kernel and rwkv6's chunked time mix the
+WKV kernel.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
       --requests 8 --batch 4 --max-new 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke --device cpu
 """
 from __future__ import annotations
@@ -84,13 +88,25 @@ class Server:
             return torch.cuda.device(self.device)
         return contextlib.nullcontext()
 
+    def _stub_batch(self, tokens):
+        """The prompt with the family's stub inputs: zero frames (B,
+        encoder_seq, d) for audio, zero patches (B, num_patches, d) for vlm."""
+        batch = {"tokens": tokens}
+        if self.cfg.family == "audio":
+            batch["frames"] = torch.zeros((tokens.shape[0], self.cfg.encoder_seq,
+                                           self.cfg.d_model), device=self.device)
+        if self.cfg.family == "vlm":
+            batch["patches"] = torch.zeros((tokens.shape[0], self.cfg.num_patches,
+                                            self.cfg.d_model), device=self.device)
+        return batch
+
     def admit(self, req: Request) -> bool:
         for s in range(self.batch):
             if self.slot_req[s] is None:
                 req.t_admit = time.monotonic()
                 prompt = torch.as_tensor(req.prompt[None, :].astype(np.int32), device=self.device)
                 with self._on_device():
-                    logits, cache = self.prefill(self.params, {"tokens": prompt},
+                    logits, cache = self.prefill(self.params, self._stub_batch(prompt),
                                                  self.slot_cache[s])
                     nxt = int(torch.argmax(logits[0, -1]))
                 self.slot_cache[s] = cache

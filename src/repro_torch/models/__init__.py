@@ -1,6 +1,5 @@
-"""Model zoo (the JAX package's ``models/``): the dense and RWKV6 (ssm)
-backbones so far; MoE, the RG-LRU hybrid, enc-dec and VLM come later
-(ROADMAP item 11)."""
+"""Model zoo (the JAX package's ``models/``): every family of the configs —
+dense, MoE, RWKV6 (ssm), the RG-LRU hybrid, VLM and the audio enc-dec."""
 from repro_torch.models.model import (
     decode_step,
     forward,

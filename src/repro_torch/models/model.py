@@ -1,5 +1,5 @@
-"""Unified model API (the JAX package's ``models/model.py``), for the
-``dense`` and ``ssm`` families.
+"""Unified model API over all families (the JAX package's
+``models/model.py``).
 
   init_params(generator, cfg)             — a model (``LM``) on the generator's device
   forward(params, cfg, batch)             — logits + aux (teacher-forced)
@@ -7,9 +7,12 @@
   make_serve_cache / prefill / decode_step — serving paths
 
 ``params`` is an :class:`LM`, the JAX parameter tree as modules (its
-``state_dict`` keys are the JAX paths, with the layer index after
-``stack``).  ``batch`` holds ``tokens`` (B, S) integers.  The training loss
-(``loss_fn``) comes with the training slice (ROADMAP item 11).
+``state_dict`` keys are the JAX paths with the stacked axes' indices
+written in: ``stack.<i>.attn.w_q``, vlm's ``stack.<u>.self.<j>.…``,
+hybrid's ``stack.units.<u>.mix.<i>.…``; ``models/convert.py``).
+``batch`` holds ``tokens`` (B, S) integers, plus the family stubs: frames
+(B, T_enc, d) for audio, patches (B, P, d) for vlm.  The training loss
+(``loss_fn``) comes with the training slice (ROADMAP item 11f).
 
 ``LM(..., kernels=False)`` runs the JAX package's plain attention and
 chunked time mix on whatever device it is on, in place of the flash
@@ -23,22 +26,31 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.layers import RMSNorm, cdtype, embed_init, rmsnorm
-from repro_torch.models.transformer import make_cache, unported
+from repro_torch.models.transformer import make_cache
+
+_STACKS = {
+    "dense": transformer.dense_stack_init,
+    "moe": transformer.dense_stack_init,
+    "vlm": transformer.vlm_stack_init,
+    "hybrid": transformer.hybrid_stack_init,
+    "ssm": transformer.rwkv_stack_init,
+    "audio": encdec.encdec_init,
+}
 
 
 class LM(nn.Module):
     """embed (V, d), final_norm, lm_head (d, V) unless tied, pos_embed
-    (learned_pos), stack (one module a layer).  ``generator`` None leaves the
-    weights uninitialised on ``device``, to be filled by
+    (learned_pos), stack (the family's layer stack).  ``generator`` None
+    leaves the weights uninitialised on ``device``, to be filled by
     ``models/convert.py`` or ``load_state_dict``."""
 
     def __init__(self, cfg, generator: Optional[torch.Generator] = None, device=None,
                  kernels: bool = True):
         super().__init__()
-        if cfg.family not in transformer.PORTED_FAMILIES:
-            raise unported(cfg.family)
+        if cfg.family not in _STACKS:
+            raise ValueError(cfg.family)
         device = generator.device if generator is not None else torch.device(device or "cpu")
         g, dt = generator, cdtype(cfg)
         self.embed = embed_init(g, (cfg.vocab_size, cfg.d_model), dtype=dt, device=device)
@@ -47,10 +59,7 @@ class LM(nn.Module):
             self.lm_head = embed_init(g, (cfg.d_model, cfg.vocab_size), dtype=dt, device=device)
         if cfg.learned_pos:
             self.pos_embed = embed_init(g, (32768, cfg.d_model), dtype=dt, device=device)
-        if cfg.family == "dense":
-            self.stack = transformer.dense_stack_init(g, cfg, device=device, kernels=kernels)
-        else:
-            self.stack = transformer.rwkv_stack_init(g, cfg, device=device, kernels=kernels)
+        self.stack = _STACKS[cfg.family](g, cfg, device=device, kernels=kernels)
 
     @property
     def device(self) -> torch.device:
@@ -80,19 +89,36 @@ def _unembed(params, cfg, x):
     return (x @ w.to(x.dtype)).float()
 
 
-def _stack(params, cfg, x, positions, caches=None, cache_pos=None):
-    if cfg.family == "dense":
-        return transformer.dense_stack_apply(params.stack, cfg, x, positions,
-                                             caches=caches, cache_pos=cache_pos)
-    return transformer.rwkv_stack_apply(params.stack, cfg, x, caches=caches)
+def _stub(params, batch, name, dtype):
+    """A family stub (frames, patches) of ``batch`` on the model's device."""
+    return torch.as_tensor(batch[name], device=params.device).to(dtype)
+
+
+def _teacher_forced(params, cfg, batch):
+    """The last hidden states (B, S, d), pre final norm, + aux."""
+    tokens = torch.as_tensor(batch["tokens"], device=params.device)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    x = _embed(params, cfg, tokens)
+    if cfg.family in ("dense", "moe"):
+        x, _, aux = transformer.dense_stack_apply(params.stack, cfg, x, positions)
+    elif cfg.family == "vlm":
+        pkv = transformer.vlm_patch_kv(params.stack, cfg, _stub(params, batch, "patches", x.dtype))
+        x, _, aux = transformer.vlm_stack_apply(params.stack, cfg, x, positions, pkv)
+    elif cfg.family == "hybrid":
+        x, _, aux = transformer.hybrid_stack_apply(params.stack, cfg, x, positions)
+    elif cfg.family == "ssm":
+        x, _, aux = transformer.rwkv_stack_apply(params.stack, cfg, x)
+    else:   # audio
+        enc_out = encdec.encode(params.stack, cfg, _stub(params, batch, "frames", x.dtype))
+        x, _ = encdec.decode_stack(params.stack, cfg, x, positions, enc_out=enc_out)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 @torch.inference_mode()
 def hidden_states(params, cfg, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
     """Final-norm hidden states (B, S, d) + aux loss — pre-unembed."""
-    tokens = torch.as_tensor(batch["tokens"], device=params.device)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-    x, _, aux = _stack(params, cfg, _embed(params, cfg, tokens), positions)
+    x, aux = _teacher_forced(params, cfg, batch)
     return rmsnorm(params.final_norm, x, cfg.norm_eps), aux
 
 
@@ -102,10 +128,9 @@ def unembed_weight(params, cfg):
 
 @torch.inference_mode()
 def forward(params, cfg, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Teacher-forced logits (B, S, V) f32 + aux loss."""
-    tokens = torch.as_tensor(batch["tokens"], device=params.device)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-    x, _, aux = _stack(params, cfg, _embed(params, cfg, tokens), positions)
+    """Teacher-forced logits (B, S, V) f32 + aux loss (MoE load balance,
+    summed over the layers)."""
+    x, aux = _teacher_forced(params, cfg, batch)
     return _unembed(params, cfg, x), aux
 
 
@@ -114,8 +139,27 @@ def forward(params, cfg, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 def make_serve_cache(cfg, batch: int, max_seq: int, device=None):
-    """The serving cache on ``device`` (CUDA unless named)."""
-    return {"kv": make_cache(cfg, batch, max_seq, device=resolve_device(device))}
+    """The serving cache on ``device`` (CUDA unless named): ``kv`` (the
+    family's, ``transformer.make_cache``), and for vlm and audio ``cross``
+    (per unit or decoder layer: the patches' or the encoder's K/V)."""
+    device = resolve_device(device)
+    cache = {"kv": make_cache(cfg, batch, max_seq, device=device)}
+    if cfg.family in ("vlm", "audio"):
+        if cfg.family == "vlm":
+            n, t = cfg.num_layers // cfg.cross_attn_every, cfg.num_patches
+        else:
+            n, t = cfg.num_layers, cfg.encoder_seq
+        shape = (n, batch, t, cfg.num_kv_heads, cfg.resolved_head_dim)
+        cache["cross"] = {name: torch.zeros(shape, dtype=cdtype(cfg), device=device)
+                          for name in ("k", "v")}
+    return cache
+
+
+def _store(cache, kv):
+    """Write freshly computed cross K/V into the cache's (in place)."""
+    for name, value in kv.items():
+        cache[name].copy_(value)
+    return cache
 
 
 @torch.inference_mode()
@@ -124,16 +168,34 @@ def prefill(params, cfg, batch: Dict, cache) -> Tuple[torch.Tensor, Dict]:
 
     ssm: the reference runs the chunked form without a state and returns
     the cache as it was (its ``time_mix`` cannot hand a state over), so
-    decode starts from that cache and not from the prompt; the port does
-    the same, to give the reference's tokens (ROADMAP queue 3)."""
+    decode starts from that cache and not from the prompt; hybrid: the
+    RG-LRU blocks start from the cache's state (a slot's previous
+    request's after its first); the port does the same, to give the
+    reference's tokens (ROADMAP queue 3)."""
     tokens = torch.as_tensor(batch["tokens"], device=params.device)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     x = _embed(params, cfg, tokens)
     new_cache = dict(cache)
-    if cfg.family == "dense":
-        x, new_cache["kv"], _ = _stack(params, cfg, x, positions, caches=cache["kv"])
-    else:
-        x, _, _ = _stack(params, cfg, x, positions, caches=None)
+    if cfg.family in ("dense", "moe"):
+        x, new_cache["kv"], _ = transformer.dense_stack_apply(params.stack, cfg, x, positions,
+                                                              caches=cache["kv"])
+    elif cfg.family == "vlm":
+        pkv = transformer.vlm_patch_kv(params.stack, cfg, _stub(params, batch, "patches", x.dtype))
+        new_cache["cross"] = _store(cache["cross"], pkv)
+        x, new_cache["kv"], _ = transformer.vlm_stack_apply(params.stack, cfg, x, positions,
+                                                            new_cache["cross"], caches=cache["kv"])
+    elif cfg.family == "hybrid":
+        x, new_cache["kv"], _ = transformer.hybrid_stack_apply(params.stack, cfg, x, positions,
+                                                               caches=cache["kv"])
+    elif cfg.family == "ssm":
+        x, _, _ = transformer.rwkv_stack_apply(params.stack, cfg, x, caches=None)
+    else:   # audio
+        enc_out = encdec.encode(params.stack, cfg, _stub(params, batch, "frames", x.dtype))
+        new_cache["cross"] = _store(cache["cross"], encdec.decoder_cross_kv(params.stack, cfg,
+                                                                            enc_out))
+        x, new_cache["kv"] = encdec.decode_stack(params.stack, cfg, x, positions,
+                                                 cross_caches=new_cache["cross"],
+                                                 self_caches=cache["kv"])
     return _unembed(params, cfg, x[:, -1:]), new_cache
 
 
@@ -144,6 +206,20 @@ def decode_step(params, cfg, token, cache, pos) -> Tuple[torch.Tensor, Dict]:
     positions = torch.full((1, 1), int(pos), dtype=torch.int32, device=token.device)
     x = _embed(params, cfg, token, offset=pos)
     new_cache = dict(cache)
-    x, new_cache["kv"], _ = _stack(params, cfg, x, positions, caches=cache["kv"],
-                                   cache_pos=pos)
+    kw = dict(caches=cache["kv"], cache_pos=pos)
+    if cfg.family in ("dense", "moe"):
+        x, new_cache["kv"], _ = transformer.dense_stack_apply(params.stack, cfg, x, positions, **kw)
+    elif cfg.family == "vlm":
+        x, new_cache["kv"], _ = transformer.vlm_stack_apply(params.stack, cfg, x, positions,
+                                                            cache["cross"], **kw)
+    elif cfg.family == "hybrid":
+        x, new_cache["kv"], _ = transformer.hybrid_stack_apply(params.stack, cfg, x, positions,
+                                                               **kw)
+    elif cfg.family == "ssm":
+        x, new_cache["kv"], _ = transformer.rwkv_stack_apply(params.stack, cfg, x,
+                                                             caches=cache["kv"])
+    else:   # audio
+        x, new_cache["kv"] = encdec.decode_stack(params.stack, cfg, x, positions,
+                                                 cross_caches=cache["cross"],
+                                                 self_caches=cache["kv"], cache_pos=pos)
     return _unembed(params, cfg, x), new_cache

@@ -1,52 +1,67 @@
-"""Layer stacks of the decoder families (the JAX package's
-``models/transformer.py``), for the ``dense`` and ``ssm`` families.
+"""Layer stacks of every decoder family (the JAX package's
+``models/transformer.py``).
 
 The reference stacks each family's per-layer parameters along a leading
-axis and runs ``lax.scan`` over it; here the layers are an
-``nn.ModuleList`` and a Python loop runs over them.  Caches keep the
-reference's stacked layout, (L, B, S_max, KVH, hd) tensors for attention
-and (L, B, ...) for rwkv6's state, and each layer updates its slice in
-place.
+axis and runs ``lax.scan`` over pattern units:
 
-The ``moe``, ``vlm``, ``hybrid`` and ``audio`` families are not ported yet
-(ROADMAP item 11): their builders raise ``NotImplementedError``.
+  dense / moe : unit = 1 layer
+  vlm         : unit = (cross_attn_every-1) self layers + 1 cross layer
+  hybrid      : unit = block_pattern (e.g. rglru, rglru, attn), plus an
+                explicit tail for L % |pattern|
+  ssm (rwkv6) : unit = 1 rwkv layer
+
+Here the units are an ``nn.ModuleList`` (the hybrid unit's blocks a
+``ModuleList`` of their own, as the reference's lists) and a Python loop
+runs over them.  Caches keep the reference's stacked layout — (L, B,
+S_max, KVH, hd) for attention, (U, n_self, ...) for vlm, the hybrid's
+{"units": [(U, ...) per block of the pattern], "tail": [...]} with a
+``slot_pos`` rolling window for local attention and {conv, h} for RG-LRU,
+(L, B, ...) for rwkv6's state — and each layer updates its slice in place.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.models.attention import attn_init, self_attention
+from repro_torch.models.attention import attn_init, cross_attention, cross_kv, self_attention
 from repro_torch.models.layers import RMSNorm, _device, cdtype, rmsnorm, swiglu, swiglu_init
+from repro_torch.models.moe import moe_ffn, moe_init
+from repro_torch.models.rglru import rglru_block, rglru_block_init, rglru_init_state
 from repro_torch.models.rwkv6 import rwkv_init_state, rwkv_layer, rwkv_layer_init
 from repro_torch.models.shardctx import constrain
 
-PORTED_FAMILIES = ("dense", "ssm")
+
+def _zero(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def unported(family: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"the {family!r} model family is not ported to PyTorch yet (ROADMAP item 11); "
-        f"the port runs {', '.join(PORTED_FAMILIES)}")
+def _copy_state(cache, new):
+    """Write a block's new recurrent state into its cache slice."""
+    if cache is not None:
+        for name, value in new.items():
+            cache[name].copy_(value)
 
 
 # ---------------------------------------------------------------------------
-# single decoder layer (dense)
+# single decoder layer (dense / moe / + optional cross)
 # ---------------------------------------------------------------------------
 
 class DecoderLayer(nn.Module):
-    """The JAX ``layer_init`` dict as a module: ln1, attn, ln2, mlp."""
+    """The JAX ``layer_init`` dict as a module: ln1, attn, ln2, mlp (SwiGLU,
+    or the MoE layer)."""
 
     def __init__(self, generator, cfg, cross: bool = False, moe: bool = False, device=None,
                  kernels: bool = True):
         super().__init__()
-        if moe:
-            raise unported("moe")
         device = _device(generator, device)
         self.ln1 = RMSNorm(cfg.d_model, device=device)
         self.attn = attn_init(generator, cfg, cross=cross, device=device, kernels=kernels)
         self.ln2 = RMSNorm(cfg.d_model, device=device)
-        self.mlp = swiglu_init(generator, cfg.d_model, cfg.d_ff, dtype=cdtype(cfg), device=device)
+        if moe:
+            self.mlp = moe_init(generator, cfg, device=device)
+        else:
+            self.mlp = swiglu_init(generator, cfg.d_model, cfg.d_ff, dtype=cdtype(cfg),
+                                   device=device)
 
 
 def layer_init(generator, cfg, cross: bool = False, moe: bool = False, device=None,
@@ -58,43 +73,194 @@ def layer_apply(
     p, cfg, x, positions, *, moe: bool, mode: str = "causal",
     cache=None, cache_pos=None,
 ):
-    if moe:
-        raise unported("moe")
     h, new_cache = self_attention(
         p.attn, cfg, rmsnorm(p.ln1, x, cfg.norm_eps), positions,
         mode=mode, cache=cache, cache_pos=cache_pos,
     )
     x = x + h
-    h = swiglu(p.mlp, rmsnorm(p.ln2, x, cfg.norm_eps))
-    return x + h, new_cache, torch.zeros((), dtype=torch.float32, device=x.device)
+    if moe:
+        h, aux = moe_ffn(p.mlp, cfg, rmsnorm(p.ln2, x, cfg.norm_eps))
+    else:
+        h, aux = swiglu(p.mlp, rmsnorm(p.ln2, x, cfg.norm_eps)), _zero(x)
+    return x + h, new_cache, aux
+
+
+def cross_layer_init(generator, cfg, device=None, kernels: bool = True) -> DecoderLayer:
+    """The JAX ``cross_layer_init`` dict: ln1, attn (with the tanh gate),
+    ln2, mlp."""
+    return layer_init(generator, cfg, cross=True, device=device, kernels=kernels)
+
+
+def cross_layer_apply(p, cfg, x, kv):
+    h = cross_attention(p.attn, cfg, rmsnorm(p.ln1, x, cfg.norm_eps), kv, gated=True)
+    x = x + h
+    return x + swiglu(p.mlp, rmsnorm(p.ln2, x, cfg.norm_eps))
 
 
 # ---------------------------------------------------------------------------
-# dense stack
+# dense / moe stack
 # ---------------------------------------------------------------------------
 
 def dense_stack_init(generator, cfg, device=None, kernels: bool = True) -> nn.ModuleList:
-    if cfg.family != "dense":
-        raise unported(cfg.family)
-    return nn.ModuleList(layer_init(generator, cfg, device=device, kernels=kernels)
+    moe = cfg.family == "moe"
+    return nn.ModuleList(layer_init(generator, cfg, moe=moe, device=device, kernels=kernels)
                          for _ in range(cfg.num_layers))
 
 
-def _layer_cache(caches, i: int):
-    return None if caches is None else {name: c[i] for name, c in caches.items()}
+def _slice(caches, *index):
+    """One layer's (or unit's) view of stacked caches, or None."""
+    return None if caches is None else {name: c[index] for name, c in caches.items()}
 
 
 def dense_stack_apply(params, cfg, x, positions, caches=None, cache_pos=None):
     """caches: stacked (L, ...) KV dicts or None, updated in place.
     Returns (x, caches, aux)."""
     moe = cfg.family == "moe"
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = _zero(x)
     for i, p in enumerate(params):
         x, _, a = layer_apply(p, cfg, constrain(x), positions, moe=moe,
-                              cache=_layer_cache(caches, i), cache_pos=cache_pos)
+                              cache=_slice(caches, i), cache_pos=cache_pos)
         x = constrain(x)
         aux = aux + a
     return x, caches, aux
+
+
+# ---------------------------------------------------------------------------
+# vlm stack: units of (cross_attn_every-1) self layers + 1 cross layer
+# ---------------------------------------------------------------------------
+
+class VLMUnit(nn.Module):
+    """One unit of the JAX ``vlm_stack_init`` tree: ``self`` (the unit's
+    self layers) and ``cross``."""
+
+    def __init__(self, generator, cfg, device=None, kernels: bool = True):
+        super().__init__()
+        n_self = cfg.cross_attn_every - 1
+        self.self = nn.ModuleList(layer_init(generator, cfg, device=device, kernels=kernels)
+                                  for _ in range(n_self))
+        self.cross = cross_layer_init(generator, cfg, device=device, kernels=kernels)
+
+
+def vlm_stack_init(generator, cfg, device=None, kernels: bool = True) -> nn.ModuleList:
+    n_units = cfg.num_layers // cfg.cross_attn_every
+    return nn.ModuleList(VLMUnit(generator, cfg, device=device, kernels=kernels)
+                         for _ in range(n_units))
+
+
+def vlm_stack_apply(params, cfg, x, positions, patch_kv, caches=None, cache_pos=None):
+    """patch_kv: the per-unit cross {"k","v"} (U, B, P, KVH, hd); caches: the
+    (U, n_self, ...) KV dicts or None, updated in place."""
+    for u, unit in enumerate(params):
+        for j, sp in enumerate(unit.self):
+            x, _, _ = layer_apply(sp, cfg, constrain(x), positions, moe=False,
+                                  cache=_slice(caches, u, j), cache_pos=cache_pos)
+            x = constrain(x)
+        x = constrain(cross_layer_apply(unit.cross, cfg, x, _slice(patch_kv, u)))
+    return x, caches, _zero(x)
+
+
+def vlm_patch_kv(params, cfg, patches):
+    """Per-unit cross K/V (stacked over the units) from the stub patch
+    embeddings (B, P, d)."""
+    b, n, _ = patches.shape
+    shape = (len(params), b, n, cfg.num_kv_heads, cfg.resolved_head_dim)
+    out = {name: patches.new_empty(shape) for name in ("k", "v")}
+    for u, unit in enumerate(params):
+        for name, value in cross_kv(unit.cross.attn, cfg, patches).items():
+            out[name][u] = value
+    return out
+
+
+# ---------------------------------------------------------------------------
+# hybrid (recurrentgemma) stack: pattern units + explicit tail
+# ---------------------------------------------------------------------------
+
+def _mixer(generator, cfg, kind, device, kernels):
+    if kind == "rglru":
+        return rglru_block_init(generator, cfg, device=device)
+    return attn_init(generator, cfg, device=device, kernels=kernels)
+
+
+class HybridUnit(nn.Module):
+    """One unit of the JAX ``hybrid_unit_init`` tree: the lists mix, mlp,
+    ln_mix, ln_mlp, one entry a block of the pattern."""
+
+    def __init__(self, generator, cfg, device=None, kernels: bool = True):
+        super().__init__()
+        device = _device(generator, device)
+        pat = cfg.block_pattern
+        self.mix = nn.ModuleList(_mixer(generator, cfg, kind, device, kernels) for kind in pat)
+        self.mlp = nn.ModuleList(
+            swiglu_init(generator, cfg.d_model, cfg.d_ff, dtype=cdtype(cfg), device=device)
+            for _ in pat)
+        self.ln_mix = nn.ModuleList(RMSNorm(cfg.d_model, device=device) for _ in pat)
+        self.ln_mlp = nn.ModuleList(RMSNorm(cfg.d_model, device=device) for _ in pat)
+
+
+def hybrid_unit_init(generator, cfg, device=None, kernels: bool = True) -> HybridUnit:
+    return HybridUnit(generator, cfg, device=device, kernels=kernels)
+
+
+class HybridBlock(nn.Module):
+    """One entry of the JAX hybrid ``tail`` list: mix, mlp, ln_mix, ln_mlp."""
+
+    def __init__(self, generator, cfg, kind, device=None, kernels: bool = True):
+        super().__init__()
+        device = _device(generator, device)
+        self.mix = _mixer(generator, cfg, kind, device, kernels)
+        self.mlp = swiglu_init(generator, cfg.d_model, cfg.d_ff, dtype=cdtype(cfg), device=device)
+        self.ln_mix = RMSNorm(cfg.d_model, device=device)
+        self.ln_mlp = RMSNorm(cfg.d_model, device=device)
+
+
+class HybridStack(nn.Module):
+    """The JAX ``hybrid_stack_init`` tree: ``units`` and, where the pattern
+    does not divide the depth, ``tail``."""
+
+    def __init__(self, generator, cfg, device=None, kernels: bool = True):
+        super().__init__()
+        pat = cfg.block_pattern
+        n_units, n_tail = divmod(cfg.num_layers, len(pat))
+        self.units = nn.ModuleList(hybrid_unit_init(generator, cfg, device=device, kernels=kernels)
+                                   for _ in range(n_units))
+        if n_tail:
+            self.tail = nn.ModuleList(HybridBlock(generator, cfg, pat[i], device=device,
+                                                  kernels=kernels) for i in range(n_tail))
+
+
+def hybrid_stack_init(generator, cfg, device=None, kernels: bool = True) -> HybridStack:
+    return HybridStack(generator, cfg, device=device, kernels=kernels)
+
+
+def _hybrid_block(kind, p_mix, p_mlp, ln_mix, ln_mlp, cfg, x, positions, cache, cache_pos):
+    """One block; its cache slice (or None) is updated in place."""
+    if kind == "rglru":
+        h, new_state = rglru_block(p_mix, cfg, rmsnorm(ln_mix, x, cfg.norm_eps), cache)
+        _copy_state(cache, new_state)
+    else:
+        h, _ = self_attention(
+            p_mix, cfg, rmsnorm(ln_mix, x, cfg.norm_eps), positions,
+            mode="local", cache=cache, cache_pos=cache_pos,
+        )
+    x = x + h
+    return x + swiglu(p_mlp, rmsnorm(ln_mlp, x, cfg.norm_eps))
+
+
+def hybrid_stack_apply(params, cfg, x, positions, caches=None, cache_pos=None):
+    """caches: {"units": [stacked (U, ...) per block], "tail": [...]} or
+    None, updated in place."""
+    pat = cfg.block_pattern
+    for u, unit in enumerate(params.units):
+        for i, kind in enumerate(pat):
+            c_i = None if caches is None else _slice(caches["units"][i], u)
+            x = _hybrid_block(kind, unit.mix[i], unit.mlp[i], unit.ln_mix[i], unit.ln_mlp[i],
+                              cfg, constrain(x), positions, c_i, cache_pos)
+        x = constrain(x)
+    for i, p in enumerate(getattr(params, "tail", ())):
+        c_i = None if caches is None else caches["tail"][i]
+        x = _hybrid_block(pat[i], p.mix, p.mlp, p.ln_mix, p.ln_mlp, cfg, x, positions, c_i,
+                          cache_pos)
+    return x, caches, _zero(x)
 
 
 # ---------------------------------------------------------------------------
@@ -109,29 +275,50 @@ def rwkv_stack_init(generator, cfg, device=None, kernels: bool = True) -> nn.Mod
 def rwkv_stack_apply(params, cfg, x, caches=None):
     """caches: the stacked (L, ...) state or None, updated in place."""
     for i, p in enumerate(params):
-        st = _layer_cache(caches, i)
+        st = _slice(caches, i)
         x, new_st = rwkv_layer(p, cfg, constrain(x), st)
         x = constrain(x)
-        if st is not None:
-            for name, value in new_st.items():
-                st[name].copy_(value)
-    return x, caches, torch.zeros((), dtype=torch.float32, device=x.device)
+        _copy_state(st, new_st)
+    return x, caches, _zero(x)
 
 
 # ---------------------------------------------------------------------------
 # cache construction
 # ---------------------------------------------------------------------------
 
+def _stacked(tree, *lead):
+    """``tree``'s leaves repeated along new leading axes ``lead``."""
+    return {name: x.expand(*lead, *x.shape).clone() for name, x in tree.items()}
+
+
 def make_cache(cfg, batch: int, max_seq: int, device=None):
-    """Decode/prefill cache of one model family, stacked over the layers."""
+    """Decode/prefill cache of one model family, in the reference's layout."""
     dt = cdtype(cfg)
     kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    n = cfg.num_layers
-    if cfg.family == "dense":
-        shape = (n, batch, max_seq, kvh, hd)
-        return {"k": torch.zeros(shape, dtype=dt, device=device),
-                "v": torch.zeros(shape, dtype=dt, device=device)}
+
+    def kv(seq):
+        return {"k": torch.zeros((batch, seq, kvh, hd), dtype=dt, device=device),
+                "v": torch.zeros((batch, seq, kvh, hd), dtype=dt, device=device)}
+
+    if cfg.family in ("dense", "moe", "audio"):  # audio: decoder self-KV
+        return _stacked(kv(max_seq), cfg.num_layers)
+    if cfg.family == "vlm":
+        n_units = cfg.num_layers // cfg.cross_attn_every
+        return _stacked(kv(max_seq), n_units, cfg.cross_attn_every - 1)
     if cfg.family == "ssm":
-        st = rwkv_init_state(cfg, batch, device=device)
-        return {name: x[None].repeat((n,) + (1,) * x.dim()) for name, x in st.items()}
-    raise unported(cfg.family)
+        return _stacked(rwkv_init_state(cfg, batch, device=device), cfg.num_layers)
+    if cfg.family == "hybrid":
+        pat = cfg.block_pattern
+        n_units, n_tail = divmod(cfg.num_layers, len(pat))
+        window = min(cfg.local_window or max_seq, max_seq)
+
+        def block_cache(kind):
+            if kind == "rglru":
+                return rglru_init_state(cfg, batch, device=device)
+            c = kv(window)
+            c["slot_pos"] = torch.full((window,), -1, dtype=torch.int32, device=device)
+            return c
+
+        return {"units": [_stacked(block_cache(kind), n_units) for kind in pat],
+                "tail": [block_cache(pat[i]) for i in range(n_tail)]}
+    raise ValueError(cfg.family)

@@ -11,7 +11,9 @@ last ulp.
 cases: an R block that offers nothing, and equal scores in two S ranges.
 
 The LM kernels (flash_attn, wkv) are held to their plain versions by
-``flash_close`` and ``wkv_close``, one tolerance table for every caller.
+``flash_close`` and ``wkv_close``, one tolerance table for every caller;
+``attention_calls`` is the flash_attn launches a model's prefill or decode
+step must show.
 """
 from __future__ import annotations
 
@@ -122,3 +124,21 @@ def wkv_close(got, want) -> tuple[float, float]:
     rtol, atol = WKV_TOL[want.dtype]
     scale = max(1.0, float(want.float().abs().max())) if want.numel() else 1.0
     return close_within(got, want, rtol, atol, scale)
+
+
+def attention_calls(cfg, prefill: bool) -> int:
+    """The attention cores (so flash_attn launches) of one prefill, or of
+    one decode step, of a model of ``cfg``: each self, local and cross
+    attention layer once, and in an audio prefill each encoder layer."""
+    if cfg.family in ("dense", "moe"):
+        return cfg.num_layers
+    if cfg.family == "vlm":   # units of cross_attn_every - 1 self layers and a cross layer
+        return cfg.num_layers // cfg.cross_attn_every * cfg.cross_attn_every
+    if cfg.family == "hybrid":
+        pat = cfg.block_pattern
+        n_units, n_tail = divmod(cfg.num_layers, len(pat))
+        attn = [kind != "rglru" for kind in pat]
+        return n_units * sum(attn) + sum(attn[:n_tail])
+    if cfg.family == "audio":
+        return 2 * cfg.num_layers + (cfg.num_encoder_layers if prefill else 0)
+    return 0                  # ssm: attention-free

@@ -13,10 +13,13 @@ sharded store (4 shards, exact and approx, and 2 replicas through a
 failover) against its CPU path, its merges counted on topk_merge_cuda,
 and the multi-device join: the ring and the store over meshes that
 repeat the card (and, where there are two cards, over distinct ones),
-and the LM serving path: the reduced qwen3-0.6b and rwkv6-3b on the card
-(attention in flash_attn, the chunked time mix in wkv) against their CPU
-path, the decode's key cut, a kernel refusal raising through the model,
-the Server in bf16.
+and the LM serving path: the reduced model of every family on the card
+(every self, local, cross and encoder attention in flash_attn, the chunked
+time mix in wkv; vlm and audio on random patches and frames with the
+cross gates at 0.5) against its CPU path with exact launch counts,
+recurrentgemma's decode across the wrap of its rolling cache, the decode's
+key cut, a kernel refusal raising through the model, the Server of every
+family in bf16.
 Every test here needs a CUDA device and skips without one.  The file imports neither jax
 nor repro, so it runs on a machine with the card alone:
 
@@ -1337,11 +1340,35 @@ def test_ring_and_mesh_store_over_two_cards(cuda, monkeypatch):
 # chunked time mix through wkv
 # ---------------------------------------------------------------------------
 
-def _lm_on(cfg, device, kernels=True):
-    """The reduced model with the weights of a CPU-drawn seed, on ``device``."""
+LM_ARCHS = ["qwen3-0.6b", "rwkv6-3b", "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b", "recurrentgemma-2b",
+            "llama-3.2-vision-11b", "whisper-medium"]
+# the reduced configs deepened where reduced() leaves a family's structure
+# out (as tests/util_lm.py does): vlm 2 units of 5 layers, the hybrid 2
+# units of (rglru, rglru, attn) and a tail of (rglru, rglru)
+LM_DEPTH = {"vlm": 10, "hybrid": 8}
+
+
+def _lm_cfg(arch, **changes):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).reduced()
+    return dataclasses.replace(cfg, **dict(dict(num_layers=LM_DEPTH.get(cfg.family,
+                                                                       cfg.num_layers)),
+                                           **changes))
+
+
+def _lm_on(cfg, device, kernels=True, gate=0.5):
+    """The reduced model with the weights of a CPU-drawn seed, on ``device``;
+    the cross gates at ``gate`` (their init, 0, would hide the cross layers)."""
     from repro_torch.models import model as M
 
     cpu = M.init_params(torch.Generator().manual_seed(4), cfg, kernels=kernels)
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if name.endswith(".gate"):
+                p.fill_(gate)
     if torch.device(device).type == "cpu":
         return cpu
     lm = M.LM(cfg, device=device, kernels=kernels)
@@ -1349,13 +1376,25 @@ def _lm_on(cfg, device, kernels=True):
     return lm
 
 
-def _lm_run(lm, cfg, tokens, n_prompt):
+def _lm_batch(cfg, tokens, n_prompt, seed=10):
+    """The prompt and, for vlm and audio, seeded N(0, 1) patches or frames."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": tokens[:, :n_prompt]}
+    b = tokens.shape[0]
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal((b, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal((b, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def _lm_run(lm, cfg, tokens, n_prompt, max_seq=32):
     """prefill of ``n_prompt`` tokens then one decode step a token: every
     step's logits (B, V) on the host."""
     from repro_torch.models import model as M
 
-    cache = M.make_serve_cache(cfg, tokens.shape[0], 32, device=lm.device)
-    logits, cache = M.prefill(lm, cfg, {"tokens": tokens[:, :n_prompt]}, cache)
+    cache = M.make_serve_cache(cfg, tokens.shape[0], max_seq, device=lm.device)
+    logits, cache = M.prefill(lm, cfg, _lm_batch(cfg, tokens, n_prompt), cache)
     out = [logits[:, 0].cpu()]
     for t in range(n_prompt, tokens.shape[1]):
         logits, cache = M.decode_step(lm, cfg, tokens[:, t:t + 1], cache, t)
@@ -1363,26 +1402,58 @@ def _lm_run(lm, cfg, tokens, n_prompt):
     return out
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-3b"])
+def _lm_launches(cfg, n_prefill, n_decode):
+    """(counter, launches) a run of ``n_prefill`` prefills and ``n_decode``
+    decode steps must show: flash_attn's attention cores, or (ssm) one wkv
+    launch a layer a prefill (the rwkv decode is the exact recurrence)."""
+    from repro_torch.testing import attention_calls
+
+    if cfg.family == "ssm":
+        return wkv_cuda, n_prefill * cfg.num_layers
+    return flash_attention_cuda, (n_prefill * attention_calls(cfg, prefill=True)
+                                  + n_decode * attention_calls(cfg, prefill=False))
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
 def test_lm_prefill_decode_on_card_matches_cpu(cuda, arch):
-    """The reduced model (f32) on the card, its attention in flash_attn and
-    its chunked time mix in wkv, against its CPU path (the plain versions):
-    logits within the kernel's tolerance, greedy tokens equal, and one
-    launch a layer for each prefill (and, qwen, each decode step)."""
-    from repro_torch.configs import get_config
+    """The reduced model (f32) on the card, every attention (self, local,
+    cross, encoder) in flash_attn and the chunked time mix in wkv, against
+    its CPU path (the plain versions): logits within the kernel's
+    tolerance, greedy tokens equal, and exactly the launches the family's
+    prefill and decode steps make."""
     from repro_torch.testing import FLASH_TOL, WKV_TOL, close_within
 
-    cfg = get_config(arch).reduced()
+    cfg = _lm_cfg(arch)
     tokens = np.random.default_rng(9).integers(0, cfg.vocab_size, (2, 14)).astype(np.int32)
-    counter = flash_attention_cuda if cfg.family == "dense" else wkv_cuda
+    counter, launches = _lm_launches(cfg, 1, 5)
     want = _lm_run(_lm_on(cfg, "cpu"), cfg, tokens, 9)
-    before = counter.launches
+    flash_before, wkv_before = flash_attention_cuda.launches, wkv_cuda.launches
     got = _lm_run(_lm_on(cfg, cuda), cfg, tokens, 9)
-    calls = 6 if cfg.family == "dense" else 1          # the rwkv decode is the exact recurrence
-    assert counter.launches - before == calls * cfg.num_layers
-    rtol, atol = (FLASH_TOL if cfg.family == "dense" else WKV_TOL)[torch.float32]
+    assert counter.launches - (wkv_before if counter is wkv_cuda else flash_before) == launches
+    assert launches > 0 and (flash_attention_cuda.launches - flash_before) + (
+        wkv_cuda.launches - wkv_before) == launches
+    rtol, atol = (WKV_TOL if cfg.family == "ssm" else FLASH_TOL)[torch.float32]
     for g, w in zip(got, want):
         close_within(g, w, rtol, atol)
+        assert torch.equal(g.argmax(-1), w.argmax(-1))
+
+
+def test_lm_hybrid_decode_across_the_wrap_on_card(cuda):
+    """recurrentgemma (reduced: local window 8, so a rolling cache of 8
+    slots) on the card against its CPU path: a prompt of 12 (the last 8
+    kept, wrapped), then 28 decode steps that wrap the slots three times
+    more, each attending to the visible slots gathered out of order."""
+    from repro_torch.testing import FLASH_TOL, close_within
+
+    cfg = _lm_cfg("recurrentgemma-2b")
+    assert cfg.local_window == 8
+    tokens = np.random.default_rng(11).integers(0, cfg.vocab_size, (1, 40)).astype(np.int32)
+    want = _lm_run(_lm_on(cfg, "cpu"), cfg, tokens, 12, max_seq=64)
+    before = flash_attention_cuda.launches
+    got = _lm_run(_lm_on(cfg, cuda), cfg, tokens, 12, max_seq=64)
+    assert flash_attention_cuda.launches - before == _lm_launches(cfg, 1, 28)[1] == 29 * 2
+    for g, w in zip(got, want):
+        close_within(g, w, *FLASH_TOL[torch.float32])
         assert torch.equal(g.argmax(-1), w.argmax(-1))
 
 
@@ -1440,16 +1511,17 @@ def test_lm_kernel_refusal_raises_through_self_attention(cuda):
 
 
 def test_lm_server_on_card(cuda):
-    """The port's Server on the card, the reduced qwen3-0.6b and rwkv6-3b in
-    bf16 (the published dtype): every request completes, slots turn over."""
-    import dataclasses
-
-    from repro_torch.configs import get_config
+    """The port's Server on the card, the reduced model of every family in
+    bf16 (the published dtype), vlm and audio on the stub patches and
+    frames: every request completes, slots turn over, and each prefill and
+    decode step makes its family's launches."""
     from repro_torch.launch.serve import Request, Server
 
-    for arch in ("qwen3-0.6b", "rwkv6-3b"):
-        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="bfloat16")
+    for arch in LM_ARCHS:
+        cfg = _lm_cfg(arch, dtype="bfloat16")
+        counter, launches = _lm_launches(cfg, 3, 3 * 3)
         srv = Server(cfg, batch=2, max_seq=64, device=cuda, seed=1)
+        before = counter.launches
         rng = np.random.default_rng(0)
         reqs = [Request(i, rng.integers(0, 256, 20).astype(np.int32), max_new=4)
                 for i in range(3)]
@@ -1460,3 +1532,4 @@ def test_lm_server_on_card(cuda):
             srv.step()
         assert sorted(r.rid for r in srv.finished) == [0, 1, 2]
         assert all(len(r.out) == 4 for r in reqs)
+        assert counter.launches - before == launches, arch

@@ -46,6 +46,7 @@ def test_the_guard_covers_the_port():
                 "launch/mesh.py", "launch/sharding.py", "configs/paper_knn.py",
                 "configs/base.py", "models/layers.py", "models/attention.py", "models/rwkv6.py",
                 "models/transformer.py", "models/model.py", "models/convert.py",
+                "models/moe.py", "models/rglru.py", "models/encdec.py",
                 "launch/steps.py", "launch/serve.py"):
         assert port / rel in FILES, rel
     for rel in ("torch_quickstart.py", "torch_peptide_search.py", "torch_knnlm_serve.py"):

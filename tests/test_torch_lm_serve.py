@@ -1,10 +1,12 @@
 """The port's LM serving path (src/repro_torch/launch/serve.py, steps.py)
-against the JAX package's on the CPU, at the reduced qwen3-0.6b and
-rwkv6-3b (f32): tests/test_serve.py's cases on the port's ``Server``; the
+against the JAX package's on the CPU, at the reduced configs (f32):
+tests/test_serve.py's cases on the port's ``Server`` (qwen3-0.6b); the
 port's ``Server`` on the JAX ``Server``'s weights (``params_from_jax``)
 giving the JAX ``Server``'s tokens on those request mixes, up to declared
-near ties; rwkv6's prefill quirk (decode starts from the cache as it was,
-not from the prompt) in both; and ``main`` against the JAX ``main``."""
+near ties, for one arch of every family (vlm and audio with the stub
+patches and frames, zeros, as the reference serves them); rwkv6's prefill
+quirk (decode starts from the cache as it was, not from the prompt) in
+both; and ``main`` against the JAX ``main``."""
 import contextlib
 import io
 import json
@@ -17,13 +19,13 @@ torch = pytest.importorskip("torch")
 
 from repro.configs.base import get_config as jax_get_config  # noqa: E402
 from repro.launch import serve as jax_serve  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch.serve import Request, Server  # noqa: E402
 from repro_torch.launch.steps import make_decode_step, make_prefill_step  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
+from util_lm import reduced  # noqa: E402
 
 # the port's logits are within 1e-4 of the JAX model's (tests/test_torch_models.py):
 # a greedy token may differ only where the JAX top two lie within twice that
@@ -31,7 +33,7 @@ NEAR_TIE = 2e-4
 
 
 def _cfg(arch="qwen3-0.6b"):
-    return get_config(arch).reduced()
+    return reduced(arch)
 
 
 def _drive(server, reqs):
@@ -200,11 +202,12 @@ MIXES = {   # tests/test_serve.py's request mixes:
 }
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-3b", "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b",
+                                  "recurrentgemma-2b", "llama-3.2-vision-11b", "whisper-medium"])
 @pytest.mark.parametrize("mix", sorted(MIXES))
 def test_server_gives_the_jax_servers_tokens(mix, arch):
     batch, seed, rng_seed, plen, max_new, n = MIXES[mix]
-    jcfg, cfg = jax_get_config(arch).reduced(), _cfg(arch)
+    jcfg, cfg = reduced(arch, jax_cfg=True), _cfg(arch)
     jsrv = jax_serve.Server(jcfg, batch=batch, max_seq=64, seed=seed)
     tree = jax.tree.map(np.asarray, jsrv.params)
     srv = Server(cfg, batch=batch, max_seq=64, device="cpu",
@@ -273,6 +276,22 @@ def test_main_prints_the_jax_mains_keys_and_counts():
     assert sorted(got) == sorted(want)
     assert sorted(got["faults"]) == sorted(want["faults"])
     assert sorted(got["latency_ms"]) == sorted(want["latency_ms"])
+    for key in ("arch", "requests", "completed", "decode_steps", "total_tokens",
+                "tokens_per_request", "faults"):
+        assert got[key] == want[key], key
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "recurrentgemma-2b", "llama-3.2-vision-11b",
+                                  "whisper-medium"])
+def test_main_serves_every_family(arch):
+    """``main --smoke`` at the reduced config of each family the JAX
+    ``main`` serves (vlm's reduced 2 layers hold no unit: embed and head
+    alone, in both), with the JAX ``main``'s keys and counts."""
+    argv = ["--arch", arch, "--smoke", "--requests", "3", "--batch", "2", "--max-new", "3",
+            "--prompt-len", "5"]
+    got = _json_of(serve.main, argv + ["--device", "cpu"])
+    want = _json_of(jax_serve.main, argv)
+    assert sorted(got) == sorted(want)
     for key in ("arch", "requests", "completed", "decode_steps", "total_tokens",
                 "tokens_per_request", "faults"):
         assert got[key] == want[key], key

@@ -10,7 +10,10 @@ plain versions) and with the JAX package's own plain math
 (elementwise f32 work and one small product); the attention and rwkv
 functions at 2e-5 (summation order of the products and softmax); the
 models' logits at ``LOGIT_TOL`` (1e-4: several layers of those orders,
-logits of magnitude ~1)."""
+logits of magnitude ~1).  The moe, hybrid, vlm and audio models are held
+to the JAX ones in tests/test_torch_moe.py, test_torch_hybrid.py and
+test_torch_encdec.py; here every family's weights (names, dtypes,
+distributions) and caches are."""
 import dataclasses
 import functools
 
@@ -35,15 +38,16 @@ from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import rwkv6 as R  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
-from repro_torch.models.convert import params_from_jax  # noqa: E402
+from repro_torch.models.convert import _jax_path, params_from_jax  # noqa: E402
+from util_lm import assert_cache_close, batch, reduced  # noqa: E402
 
 CPU = torch.device("cpu")
 LAYER_TOL = 1e-6
 FN_TOL = 2e-5
 LOGIT_TOL = 1e-4
 MODEL_ARCHS = ["qwen3-0.6b", "qwen1.5-0.5b", "deepseek-7b", "qwen3-14b", "rwkv6-3b"]
-UNPORTED = {"olmoe-1b-7b": "moe", "phi3.5-moe-42b-a6.6b": "moe", "llama-3.2-vision-11b": "vlm",
-            "recurrentgemma-2b": "hybrid", "whisper-medium": "audio"}
+# one arch of each family beside dense and ssm
+FAMILY_ARCHS = ["olmoe-1b-7b", "recurrentgemma-2b", "llama-3.2-vision-11b", "whisper-medium"]
 
 
 def _np_tree(tree):
@@ -150,6 +154,31 @@ def test_inits_draw_the_reference_distributions():
     assert abs(float(w.std()) - 1 / 16) < 2e-3 and abs(float(w.mean())) < 2e-3
     assert abs(float(e.std()) - 0.02) < 1e-3
     assert L.dense_init(g, (4, 4), dtype=torch.bfloat16).dtype == torch.bfloat16
+    # every family's model: each JAX leaf against the port's slices of it,
+    # constant and deterministic leaves (norms, biases, gates, the RG-LRU's
+    # Λ) equal to f32 rounding, drawn ones with the reference's mean and std (the experts'
+    # at 1/√E: dense_init's fan-in is the leading axis)
+    for arch in FAMILY_ARCHS + ["rwkv6-3b"]:
+        cfg = reduced(arch, d_model=128, d_ff=256)
+        trees = [_np_tree(JM.init_params(jax.random.key(seed), cfg)) for seed in (0, 1)]
+        model = M.init_params(torch.Generator().manual_seed(0), cfg)
+        got = {}
+        for name, p in model.named_parameters():
+            path, index = _jax_path(name)
+            got.setdefault(path, []).append(p.numpy().ravel())
+        for path, leaf in _flat(trees[0]).items():
+            mine = np.concatenate(got[path])
+            assert mine.size == leaf.size, (arch, path)
+            if np.array_equal(leaf, _flat(trees[1])[path]):        # not drawn
+                # to f32 rounding: torch.linspace and jnp.linspace round Λ's
+                # steps apart by an ulp
+                np.testing.assert_allclose(np.sort(mine), np.sort(leaf.ravel()), rtol=2e-7,
+                                           atol=0, err_msg=f"{arch} {path}")
+            else:
+                sd = float(leaf.std())
+                tol = 4 * sd / np.sqrt(leaf.size) + 1e-7
+                assert abs(float(mine.mean()) - float(leaf.mean())) < tol, (arch, path)
+                assert abs(float(mine.std()) / sd - 1) < 0.15, (arch, path, mine.std(), sd)
 
 
 def test_embed_and_unembed():
@@ -399,6 +428,13 @@ def test_rwkv_init_state_and_cache():
         assert sorted(got) == sorted(want)
         for key in want:
             assert tuple(got[key].shape) == want[key].shape and not got[key].any()
+    # every family's serving cache: structure, shapes, dtypes and contents
+    for arch in all_arch_names():
+        c = reduced(arch)
+        got, want = M.make_serve_cache(c, 2, 16, device="cpu"), JM.make_serve_cache(c, 2, 16)
+        assert_cache_close(got, _np_tree(want), 0.0, path=arch)
+        for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+            assert str(g.dtype).split(".")[-1] == str(w.dtype), arch
 
 
 # ---------------------------------------------------------------------------
@@ -488,18 +524,23 @@ def test_recurrent_decode_matches_teacher_forcing(kernels):
                                    atol=5e-2, rtol=2e-2)
 
 
+F32_LEAVES = ("scale", "bias",                                   # norms (layernorm's bias)
+              "decay_w0", "decay_a", "decay_b", "bonus_u",          # rwkv6's decay and bonus
+              "lru_lambda", "lru_wa", "lru_ba", "lru_wi", "lru_bi",  # the RG-LRU recurrence
+              "gate")                                               # the cross tanh gate
+
+
 def test_models_keep_weights_in_the_dtype_of_their_use():
-    for arch in ("qwen1.5-0.5b", "rwkv6-3b"):
-        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="bfloat16")
+    for arch in ["qwen1.5-0.5b", "rwkv6-3b"] + FAMILY_ARCHS:
+        cfg = reduced(arch, dtype="bfloat16")
         model = M.init_params(torch.Generator().manual_seed(0), cfg)
         f32 = {name for name, p in model.named_parameters() if p.dtype == torch.float32}
         assert all(not p.requires_grad for p in model.parameters())
         for name, p in model.named_parameters():
-            leaf = name.split(".")[-1]
-            used_in_f32 = leaf in ("scale", "decay_w0", "decay_a", "decay_b", "bonus_u")
+            used_in_f32 = name.split(".")[-1] in F32_LEAVES
             assert (name in f32) == used_in_f32, name
-        tok = _tokens(cfg, 1, 9, 4)
-        logits, _ = M.forward(model, cfg, {"tokens": tok})
+            assert p.dtype in (torch.float32, torch.bfloat16), name
+        logits, _ = M.forward(model, cfg, batch(cfg, 1, 9, 4))
         assert logits.dtype == torch.float32 and bool(torch.isfinite(logits).all())
 
 
@@ -513,15 +554,6 @@ def test_bf16_conversion_is_the_references_cast_at_use():
                       .astype(jnp.float32))
     np.testing.assert_array_equal(model.stack[1].attn.w_q.float().numpy(), want)
     assert model.stack[1].attn.q_norm.scale.dtype == torch.float32
-
-
-@pytest.mark.parametrize("arch,family", sorted(UNPORTED.items()))
-def test_unported_families_raise(arch, family):
-    cfg = get_config(arch).reduced()
-    for build in (lambda: M.init_params(torch.Generator().manual_seed(0), cfg),
-                  lambda: M.make_serve_cache(cfg, 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError, match=f"'{family}'.*ROADMAP item 11"):
-            build()
 
 
 def test_params_from_jax_refuses_a_bad_tree():
@@ -549,6 +581,61 @@ def test_params_from_jax_refuses_a_bad_tree():
     with pytest.raises(ValueError, match="embed"):
         params_from_jax(shallow, cfg, device="cpu")
 
+    # trees that are not one flat (L, ...) stack: each fault names its JAX path
+    hybrid = reduced("recurrentgemma-2b")
+    tree = _jax_params(hybrid)
+    params_from_jax(tree, hybrid, device="cpu")
+    missing = jax.tree.map(lambda a: a, tree)
+    del missing["stack"]["units"]["mix"][0]["w_x"]
+    with pytest.raises(KeyError, match="stack/units/mix/0/w_x"):
+        params_from_jax(missing, hybrid, device="cpu")
+    extra = jax.tree.map(lambda a: a, tree)
+    extra["stack"]["tail"].append(extra["stack"]["tail"][0])
+    with pytest.raises(KeyError, match="stack/tail/2/mix/w_x"):
+        params_from_jax(extra, hybrid, device="cpu")
+    shallow = jax.tree.map(lambda a: a, tree)
+    shallow["stack"]["units"]["mix"][2]["w_q"] = shallow["stack"]["units"]["mix"][2]["w_q"][:1]
+    with pytest.raises(ValueError, match="stack/units/mix/2/w_q"):
+        params_from_jax(shallow, hybrid, device="cpu")
+    bad = jax.tree.map(lambda a: a, tree)
+    tail_mix = bad["stack"]["tail"][1]["mix"]
+    tail_mix["lru_lambda"] = tail_mix["lru_lambda"][None]
+    with pytest.raises(ValueError, match="stack/tail/1/mix/lru_lambda"):
+        params_from_jax(bad, hybrid, device="cpu")
+
+    vlm = reduced("llama-3.2-vision-11b")
+    tree = _jax_params(vlm)
+    bad = jax.tree.map(lambda a: a, tree)
+    bad["stack"]["self"]["attn"]["w_q"] = bad["stack"]["self"]["attn"]["w_q"][:, :3]
+    with pytest.raises(ValueError, match="stack/self/attn/w_q"):
+        params_from_jax(bad, vlm, device="cpu")
+    bad = jax.tree.map(lambda a: a, tree)
+    bad["stack"]["cross"]["attn"]["gate"] = np.float32(0.0)       # unstacked
+    with pytest.raises(ValueError, match="stack/cross/attn/gate"):
+        params_from_jax(bad, vlm, device="cpu")
+
+    audio = reduced("whisper-medium")
+    tree = _jax_params(audio)
+    missing = jax.tree.map(lambda a: a, tree)
+    del missing["stack"]["enc_ln"]["bias"]
+    with pytest.raises(KeyError, match="stack/enc_ln/bias"):
+        params_from_jax(missing, audio, device="cpu")
+    extra = jax.tree.map(lambda a: a, tree)
+    extra["stack"]["decoder"]["self"]["gate"] = np.zeros((audio.num_layers,), np.float32)
+    with pytest.raises(KeyError, match="stack/decoder/self/gate"):
+        params_from_jax(extra, audio, device="cpu")
+
+
+def _key(k):
+    """A jax.tree_util path entry: a dict key, or a list index (the hybrid's
+    lists)."""
+    return str(k.key) if hasattr(k, "key") else str(k.idx)
+
+
+def _flat(tree):
+    return {"/".join(_key(k) for k in path): np.asarray(leaf)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
 
 def test_model_state_dict_names_are_the_jax_paths():
     cfg = get_config("rwkv6-3b").reduced()
@@ -562,3 +649,30 @@ def test_model_state_dict_names_are_the_jax_paths():
     assert {"/".join(["stack"] + n.split("/")[2:]) for n in stacked} == \
         {f for f in flat if f.startswith("stack/")}
     assert len(model.stack) == cfg.num_layers
+    # every family: each JAX leaf is the port's names with the stacked axes'
+    # indices written in, one name per index of those axes, each name's
+    # tensor that leaf's slice; list indices (the hybrid's) stay in the path
+    for arch in FAMILY_ARCHS:
+        cfg = reduced(arch)
+        tree = _jax_params(cfg)
+        flat = _flat(tree)
+        model = params_from_jax(tree, cfg, device="cpu")
+        seen = {}
+        for name, p in model.state_dict().items():
+            path, index = _jax_path(name)
+            assert path in flat, (arch, name)
+            leaf = flat[path]
+            assert leaf.shape[len(index):] == tuple(p.shape), (arch, name)
+            np.testing.assert_array_equal(p.numpy(), leaf[index], err_msg=name)
+            seen.setdefault(path, set()).add(index)
+        for path, leaf in flat.items():
+            lead = leaf.shape[:leaf.ndim - model.state_dict()[
+                next(n for n in model.state_dict() if _jax_path(n)[0] == path)].dim()]
+            assert len(seen[path]) == int(np.prod(lead)), (arch, path)
+    names = set(params_from_jax(_jax_params(reduced("recurrentgemma-2b")),
+                                reduced("recurrentgemma-2b"), device="cpu").state_dict())
+    assert {"stack.units.1.mix.0.w_x", "stack.units.1.mix.2.w_q", "stack.tail.1.mix.lru_wa",
+            "stack.units.0.ln_mlp.2.scale"} <= names
+    names = set(params_from_jax(_jax_params(reduced("llama-3.2-vision-11b")),
+                                reduced("llama-3.2-vision-11b"), device="cpu").state_dict())
+    assert {"stack.1.self.3.attn.w_q", "stack.1.cross.attn.gate"} <= names
