@@ -230,6 +230,28 @@ and the LM serving path at full published width and depth:
            recurrentgemma-2b` as a process; (g) flash_attn at phase 15's
            shapes against its plain version, timed beside SDPA.
 
+and training on one card:
+
+  phase 16 (a) 3 train steps (launch/steps.py, AdamW, the chunked CE) of
+           the reduced model of one arch a family (qwen3-0.6b,
+           olmoe-1b-7b, rwkv6-3b, recurrentgemma-2b, llama-3.2-vision-11b,
+           whisper-medium; f32, TF32 off) on the card and on the CPU from
+           the same weights and make_lm_batch batches: losses, grad_norm
+           and the parameters within testing.train_close's tolerances
+           (the share used printed), no kernel launched (the train step
+           runs the plain route, as the reference trains); (b) qwen3-0.6b
+           at full width through launch/train.py::build and its step (bf16
+           compute, f32 master weights, remat), batch 8 x 1,024, CE chunks
+           of 512, 10 steps: the median step after 2 of warm-up, tokens/s,
+           held and peak memory, the model FLOP rate beside the bf16 dense
+           peak, one step's device busy time and idle share by kernel group
+           (torch.profiler), every loss finite; (c) launch/train.py::main on
+           a reduced config through an injected failure (RESTORE after,
+           failures 1), then a new process resuming from its last
+           checkpoint; (d) flash_attention_cuda and wkv_cuda raise on an
+           input that requires grad, and a model built to train with
+           kernels=True still serves through them, every launch asserted.
+
 Every flash_attn and wkv comparison goes through repro_torch.testing
 (flash_close, wkv_close: one tolerance table with the card tests) and
 prints the largest share of its tolerance that any element used.
@@ -3420,6 +3442,270 @@ def phase15(smi, name, root, dev, reset_counts, counters):
     return launches, errs
 
 
+# phase 16: training on one card
+TRAIN_ARCHS = ("qwen3-0.6b", "olmoe-1b-7b", "rwkv6-3b", "recurrentgemma-2b",
+               "llama-3.2-vision-11b", "whisper-medium")
+TRAIN_DEPTH = {"vlm": 10, "hybrid": 8}   # two units each, as the parity tests deepen them
+TRAIN_SMALL = (3, 2, 32, 16)             # (a): steps, batch, seq, ce_chunk
+TRAIN_FULL = ("qwen3-0.6b", 8, 1024, 512, 2, 8)   # (b): arch, batch, seq, ce_chunk, warm-up, timed
+TRAIN_GROUPS = (  # (group, pattern in the CUDA kernel's name), first match wins
+    ("products (cuBLAS)", r"gemm|Gemm|cutlass|gemv|nvjet|xmma"),
+    ("softmax, logsumexp", r"softmax|logsumexp"),
+    ("reductions, norms", r"reduce|norm"),
+    ("elementwise (casts, adds, AdamW, rope, activations)",
+     r"elementwise|vectorized|fill|copy|Copy"),
+)
+
+
+def train_model_flops(cfg, params, batch, seq):
+    """Model FLOPs of one train step (forward and backward, 3x the
+    forward; remat's recompute not counted): 2 per weight a token for every
+    matmul weight (the tied unembedding once more), and the causal
+    attention's two products, 2 H hd S a token a layer on average."""
+    n = sum(p.numel() for name, p in params.named_parameters()
+            if p.dim() >= 2 and name != "embed")
+    n += cfg.vocab_size * cfg.d_model                      # the unembedding
+    tokens = batch * seq
+    attn = 2.0 * cfg.num_layers * cfg.num_heads * cfg.resolved_head_dim * seq * tokens
+    return 3.0 * (2.0 * n * tokens + attn)
+
+
+def step_profile(fn, n_top=10):
+    """(device busy ms, {group: (ms, kernels)} by TRAIN_GROUPS, the n_top
+    kernels by device time as (ms, count, name)) of one call of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for evt in prof.key_averages():
+        total = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
+        if total:
+            rows.append((total / 1e3, evt.count, evt.key))
+    groups = {}
+    for ms, n, key in rows:
+        group = next((g for g, pat in TRAIN_GROUPS if re.search(pat, key)), "other")
+        t, c = groups.get(group, (0.0, 0))
+        groups[group] = (t + ms, c + n)
+    return sum(r[0] for r in rows), groups, sorted(rows, reverse=True)[:n_top]
+
+
+def phase16_card_vs_cpu(smi, dev, reset_counts, counters):
+    """(a) 3 train steps of each family's reduced model (f32, TF32 off) on
+    the card and on the CPU from the same weights and batches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import StepOptions, init_train_state
+    from repro_torch.testing import train_batches, train_close, train_run
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    steps, b, seq, chunk = TRAIN_SMALL
+    worst = {"metrics": 0.0, "params": 0.0}
+    for arch in TRAIN_ARCHS:
+        cfg = get_config(arch).reduced()
+        cfg = dataclasses.replace(cfg, num_layers=TRAIN_DEPTH.get(cfg.family, cfg.num_layers))
+        weights = init_train_state(cfg, torch.Generator().manual_seed(5))[0].state_dict()
+        batches = train_batches(cfg, steps, b, seq)
+        opts = StepOptions(ce_chunk=chunk)
+        want = train_run(cfg, weights, "cpu", batches, opts)
+        reset_counts()
+        t0 = time.perf_counter()
+        got = train_run(cfg, weights, dev, batches, opts)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        assert all(fn.launches == 0 for fn in counters), [fn.launches for fn in counters]
+        used = train_close(*got, *want)
+        worst = {k: max(worst[k], used[k]) for k in worst}
+        card_loss = ", ".join("%.6f" % m["loss"] for m in got[1])
+        cpu_loss = ", ".join("%.6f" % m["loss"] for m in want[1])
+        print(f"phase 16 (a) {arch} reduced ({cfg.num_layers} layers, f32) on {smi}: {steps} "
+              f"steps on the card in {card_s:.3f} s, losses {card_loss} (CPU {cpu_loss}), "
+              f"grad_norm {got[1][-1]['grad_norm']:.6f} (CPU {want[1][-1]['grad_norm']:.6f}); "
+              f"tol used: "
+              f"metrics {used['metrics']:.3f}, parameters {used['params']:.3f}; kernel launches 0")
+    return worst
+
+
+def phase16_full_width(smi, name, dev):
+    """(b) qwen3-0.6b at full width through launch/train.py::build and its
+    step: bf16 compute, f32 masters, remat, batch 8 x 1,024, CE chunks of
+    512."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_lm_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import StepOptions
+    from repro_torch.launch.train import build
+
+    arch, b, seq, chunk, warm, timed = TRAIN_FULL
+    cfg = get_config(arch)
+    assert cfg.dtype == "bfloat16" and cfg.remat
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt, step, _ = build(cfg, make_host_mesh(1, 1, devices=[dev]),
+                                 StepOptions(ce_chunk=chunk), warm + timed + 1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    assert all(p.dtype == torch.float32 and p.requires_grad for p in params.parameters())
+    n_params = sum(p.numel() for p in params.parameters())
+    state_bytes = torch.cuda.memory_allocated()
+    batches = [{k: torch.as_tensor(v).to(dev) for k, v in
+                make_lm_batch(0, i, b, seq, cfg.vocab_size).items()}
+               for i in range(warm + timed + 1)]
+    ms, losses = [], []
+    for i in range(warm + timed):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt, m = step(params, opt, batches[i])
+        loss = float(m["loss"])                         # waits for the step
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(loss)
+        assert np.isfinite(loss) and np.isfinite(float(m["grad_norm"])), (i, loss)
+    held, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+    median = float(np.median(ms[warm:]))
+    tokens = b * seq
+    flops = train_model_flops(cfg, params, b, seq)
+    peak_flops = peaks(name, torch.bfloat16)[0]
+    box = {}
+
+    def one_step():
+        box["out"] = step(params, opt, batches[-1])
+
+    busy, groups, top = step_profile(one_step)
+    assert busy > 0, "the profiler saw no device time"
+    assert np.isfinite(float(box["out"][2]["loss"]))
+    print(f"phase 16 (b) {arch} full width ({cfg.num_layers} layers, d {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}, bf16 compute, f32 masters, remat) on {smi}: {n_params / 1e9:.3f} B "
+          f"parameters, state (masters + AdamW) {state_bytes / 2**30:.2f} GiB built in "
+          f"{init_s:.2f} s; batch {b} x {seq}, ce_chunk {chunk}: step ms "
+          f"{', '.join(f'{x:.1f}' for x in ms)}; median after {warm} warm-up steps "
+          f"{median:.1f} ms, {tokens / median * 1e3:.0f} tokens/s; device memory held "
+          f"{held / 2**30:.2f} GiB, peak {peak / 2**30:.2f} GiB; model FLOPs "
+          f"{flops:.3e} a step, {flops / median / 1e9:.1f} TFLOP/s, "
+          f"{flops / median * 1e3 / peak_flops:.3f} of the bf16 dense peak "
+          f"({peak_flops / 1e12:.0f} TFLOP/s); losses {', '.join(f'{x:.4f}' for x in losses)}")
+    parts = "; ".join(f"{g} {t:.1f} ms ({n} kernels)"
+                      for g, (t, n) in sorted(groups.items(), key=lambda x: -x[1][0]))
+    print(f"  phase 16 (b) one step under torch.profiler: device busy {busy:.1f} ms of the "
+          f"median step's {median:.1f} ms (idle share {1.0 - busy / median:.3f}): {parts}")
+    for t, n, key in top:
+        print(f"    {t:8.1f} ms {n:6d} x {key[:110]}")
+    del params, opt, step, batches, box
+    torch.cuda.empty_cache()
+    return median
+
+
+def phase16_trainer(smi, root):
+    """(c) launch/train.py::main on the card with an injected failure, then
+    a new process resuming from its last checkpoint."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.launch import train
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        base = ["--arch", "qwen3-0.6b", "--smoke", "--global-batch", "4", "--seq-len", "32",
+                "--ckpt-dir", ckpt, "--resume", "auto"]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            assert train.main(base + ["--steps", "12", "--ckpt-every", "4", "--fail-at-step",
+                                      "6", "--log-every", "4"]) == 0
+        out = buf.getvalue()
+        assert "RESTORE after: RuntimeError: injected node failure" in out, out
+        rec = json.loads(out.strip().splitlines()[-1])
+        assert rec["failures"] == 1 and np.isfinite(rec["final_loss"]), rec
+        print(f"phase 16 (c) launch/train.py::main on {smi}, --fail-at-step 6 --ckpt-every 4: "
+              f"RESTORE after the injected failure, in {time.perf_counter() - t0:.1f} s, "
+              f"{out.strip().splitlines()[-1]}")
+        env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *base,
+                               "--steps", "14", "--log-every", "2"], capture_output=True,
+                              text=True, timeout=300, env=env, cwd=root)
+        assert proc.returncode == 0, (proc.stdout[-2000:], proc.stderr[-4000:])
+        assert "resumed from step 12" in proc.stdout, proc.stdout
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        assert rec["steps"] == 14 and rec["failures"] == 0, rec
+        print(f"phase 16 (c) python -m repro_torch.launch.train --resume auto --steps 14: exit 0 "
+              f"in {time.perf_counter() - t0:.1f} s (a process of its own), resumed from step "
+              f"12, {proc.stdout.strip().splitlines()[-1]}")
+
+
+def phase16_autograd(dev, reset_counts, counters):
+    """(d) the kernels refuse inputs that require grad; a model built to
+    train with kernels=True still serves through them (inference mode),
+    with every launch asserted.  Returns (flash f32 launches, wkv
+    launches) of its serving runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda
+    from repro_torch.kernels.wkv.kernel import wkv_cuda
+    from repro_torch.models import model as M
+    from repro_torch.testing import attention_calls
+
+    q = torch.randn(4, 64, 64, device=dev)
+    lw, u = -torch.rand(4, 64, 64, device=dev), torch.randn(4, 64, device=dev)
+    reset_counts()
+    for fn, args, kw in ((flash_attention_cuda, (q, q, q), dict(sm_scale=0.125)),
+                         (wkv_cuda, (q, q, q, lw, u), dict(chunk=16))):
+        for i in range(len(args)):
+            a = list(args)
+            a[i] = a[i].clone().requires_grad_(True)
+            try:
+                fn(*a, **kw)
+            except RuntimeError as e:
+                assert "no backward" in str(e) and "kernels=False" in str(e), e
+            else:
+                raise AssertionError(f"{fn.__name__} took an input that requires grad")
+    assert all(c.launches == 0 for c in counters)
+    launches = {}
+    for arch in ("qwen3-0.6b", "rwkv6-3b"):
+        cfg = get_config(arch).reduced()
+        lm = M.init_params(torch.Generator(dev).manual_seed(0), cfg, kernels=True, master=True)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 24), device=dev,
+                               generator=torch.Generator(dev).manual_seed(1))
+        reset_counts()
+        cache = M.make_serve_cache(cfg, 2, 32, device=dev)
+        logits, cache = M.prefill(lm, cfg, {"tokens": tokens[:, :16]}, cache)
+        for t in range(16, 24):
+            logits, cache = M.decode_step(lm, cfg, tokens[:, t:t + 1], cache, t)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(logits).all())
+        if cfg.family == "ssm":
+            want = {wkv_cuda: cfg.num_layers}
+        else:
+            want = {flash_attention_cuda: attention_calls(cfg, True) + 8 * attention_calls(cfg,
+                                                                                         False)}
+        got = {c: c.launches for c in counters if c.launches}
+        assert got == want, (arch, got, want)
+        launches[arch] = sum(want.values())
+        print(f"phase 16 (d) {arch} reduced, built to train (f32 masters) with kernels=True: "
+              f"prefill + 8 decode steps in inference mode launch "
+              f"{', '.join(f'{c.__name__} {n}' for c, n in got.items())} (asserted)")
+    print("phase 16 (d) flash_attention_cuda and wkv_cuda raise on an input that requires grad "
+          "(each input in turn) and launch nothing")
+    return launches["qwen3-0.6b"], launches["rwkv6-3b"]
+
+
+def phase16(smi, name, root, dev, reset_counts, counters):
+    """Training on one card: (a) card against CPU, (b) full width, (c) the
+    trainer's failure and resume, (d) the kernels under autograd.  Returns
+    (flash f32 launches, wkv launches) of (d)'s serving runs."""
+    t_phase = time.perf_counter()
+    used = phase16_card_vs_cpu(smi, dev, reset_counts, counters)
+    print(f"phase 16 (a) worst tol used: metrics {used['metrics']:.3f}, parameters "
+          f"{used['params']:.3f}")
+    phase16_full_width(smi, name, dev)
+    phase16_trainer(smi, root)
+    out = phase16_autograd(dev, reset_counts, counters)
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3793,6 +4079,11 @@ def main():
     flash_line["max_abs_err"] = max(flash_line["max_abs_err"], fam_errs[torch.float32])
     flash_bf16_line["max_abs_err"] = max(flash_bf16_line["max_abs_err"], fam_errs[torch.bfloat16])
 
+    # phase 16: training on one card (the train step runs no kernel; (d)'s
+    # serving runs count from 0 around each)
+    train_flash, train_wkv = phase16(smi, name, root, torch.device("cuda", 0), reset_counts,
+                                     counters)
+
     print(json.dumps({"kernels": [
         {
             "name": "knn_topk",
@@ -3841,8 +4132,8 @@ def main():
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
             "replaces": "src/repro/kernels/flash_attn/kernel.py:36",
-            "launches": flash_f32_launches + lm_launches["flash_f32"]   # phases 7, 14, 15
-            + fam_launches["flash_f32"],
+            "launches": flash_f32_launches + lm_launches["flash_f32"]   # phases 7, 14-16
+            + fam_launches["flash_f32"] + train_flash,
             **{key: flash_line[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms")},
         },
@@ -3861,7 +4152,8 @@ def main():
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/wkv.cu",
             "replaces": "src/repro/kernels/wkv/kernel.py:37",
-            **dict(wkv_line, launches=wkv_line["launches"] + lm_launches["wkv"],   # phases 8, 14
+            **dict(wkv_line, launches=wkv_line["launches"] + lm_launches["wkv"]   # phases 8, 14, 16
+                   + train_wkv,
                    max_abs_err=max(wkv_line["max_abs_err"], lm_errs["wkv"])),
             # library_ms null: no single PyTorch call computes WKV
         },

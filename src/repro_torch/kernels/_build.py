@@ -117,3 +117,14 @@ def check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple, device) 
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def refuse_autograd(op: str, plain: str, *inputs: torch.Tensor) -> None:
+    """Raise when autograd would record ``op``: the kernels have no
+    backward, so an output of theirs would leave its inputs without a
+    gradient.  ``plain`` names the model's differentiable route."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in inputs):
+        raise RuntimeError(
+            f"{op} has no backward and an input requires grad; train through the plain "
+            f"route ({plain}: build the model with kernels=False), or call it under "
+            "torch.no_grad()")

@@ -15,6 +15,11 @@ give zero output columns, which are cut off; ``sm_scale`` stays the
 caller's), at the cost of one copy of q, k, v and the output.  On CPU
 tensors it runs the plain version (``ref.flash_attention_plain``).
 Nothing falls back: a CUDA tensor that the kernels cannot take raises.
+The kernels compute the forward only (the Pallas kernel defines no VJP
+either): with grad mode on and an input that requires grad, the wrapper
+raises on either device instead of returning an output that autograd
+cannot differentiate; a model trains through the plain route
+(``kernels=False``, ``models/attention.py::_sdpa``), as the reference does.
 ``flash_attention_cuda.launches`` counts the launches of both kernels,
 ``.f32_mma_launches`` those of the 3xTF32 kernel and ``.bf16_launches``
 those of the bf16 kernel.
@@ -25,7 +30,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._build import check, launch
+from repro_torch.kernels._build import check, launch, refuse_autograd
 from repro_torch.kernels.flash_attn.ref import flash_attention_plain
 
 KERNEL_WIDTHS = (16, 32, 64, 128, 256)
@@ -63,6 +68,7 @@ def flash_attention_cuda(
     window: int = 0,
 ) -> torch.Tensor:
     """(BH, Sq, hd) in q.dtype: softmax(q kᵀ · sm_scale, masked) v."""
+    refuse_autograd("flash_attention_cuda", "_sdpa", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, sm_scale=sm_scale, window=window)
     if q.device.type != "cuda":

@@ -9,7 +9,11 @@ k_carry^T v of every chunk, into scratch that the wrapper allocates), the
 carry (an elementwise scan over the chunks that turns U_n into the state
 before chunk n, in place) and the outputs (every chunk at once).  On CPU
 tensors it runs the plain version (``ref.wkv_plain``).  Nothing falls
-back: a CUDA tensor that the kernels cannot take raises.
+back: a CUDA tensor that the kernels cannot take raises.  The kernels
+compute the forward only: with grad mode on and an input that requires
+grad, the wrapper raises on either device; a model trains through the plain
+route (``kernels=False``, ``models/rwkv6.py::_chunked_wkv``), as the
+reference does.
 ``wkv_cuda.launches`` counts calls that launched, one a call.
 """
 from __future__ import annotations
@@ -18,7 +22,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._build import check, launch, load
+from repro_torch.kernels._build import check, launch, load, refuse_autograd
 from repro_torch.kernels.wkv.ref import wkv_plain
 
 HEAD_SIZES = (16, 32, 64)
@@ -49,6 +53,7 @@ def wkv_cuda(
     chunk: int = 128,
 ) -> torch.Tensor:
     """(BH, T, K) outputs in r.dtype, computed in f32."""
+    refuse_autograd("wkv_cuda", "_chunked_wkv", r, k, v, lw, u)
     if r.device.type == "cpu":
         return wkv_plain(r, k, v, lw, u, chunk=chunk)
     if r.device.type != "cuda":

@@ -207,8 +207,11 @@ def self_attention(
         ck, cv = cache["k"], cache["v"]
         if s == 1:  # decode: append to cache, score against everything so far
             pos = int(cache_pos)
-            ck[:, pos] = k[:, 0].to(ck.dtype)
-            cv[:, pos] = v[:, 0].to(cv.dtype)
+            # the reference's dynamic_update_slice clamps the start: a position
+            # past the cache's end overwrites its last slot
+            slot = min(pos, ck.shape[1] - 1)
+            ck[:, slot] = k[:, 0].to(ck.dtype)
+            cv[:, slot] = v[:, 0].to(cv.dtype)
             if p.kernels:
                 # the reference's mask (kpos <= pos, inside the window) gives
                 # every other key a weight of exactly 0: cut them away

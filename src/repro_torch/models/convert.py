@@ -57,10 +57,11 @@ def _jax_path(name: str) -> Tuple[str, Tuple[int, ...]]:
     return "/".join(path), tuple(index)
 
 
-def params_from_jax(tree: Dict, cfg, device=None, kernels: bool = True) -> LM:
+def params_from_jax(tree: Dict, cfg, device=None, kernels: bool = True,
+                    master: bool = False) -> LM:
     """The port's model on ``device`` (CUDA unless named) holding ``tree``'s
-    weights."""
-    model = LM(cfg, device=resolve_device(device), kernels=kernels)
+    weights; ``master`` keeps them in f32, to train (``LM``)."""
+    model = LM(cfg, device=resolve_device(device), kernels=kernels, master=master)
     params = dict(model.named_parameters())
     want: Dict[str, Tuple[int, ...]] = {}
     for name, p in params.items():

@@ -29,6 +29,7 @@ from repro_torch.models.layers import (
     sinusoidal_pos,
 )
 from repro_torch.models.shardctx import constrain
+from repro_torch.models.transformer import _maybe_remat
 
 
 class EncLayer(nn.Module):
@@ -89,12 +90,17 @@ def encode(params, cfg, frames: torch.Tensor) -> torch.Tensor:
     t = frames.shape[1]
     x = frames + sinusoidal_pos(t, cfg.d_model, device=frames.device).to(frames.dtype)
     positions = torch.arange(t, device=frames.device)
-    for p in params.encoder:
+
+    def body(p, x):
         x = constrain(x)
         h, _ = self_attention(p.attn, cfg, layernorm(p.ln1, x, cfg.norm_eps), positions,
                               mode="full")
         x = x + h
-        x = constrain(x + gelu_mlp(p.mlp, layernorm(p.ln2, x, cfg.norm_eps)))
+        return constrain(x + gelu_mlp(p.mlp, layernorm(p.ln2, x, cfg.norm_eps)))
+
+    body = _maybe_remat(body, cfg)
+    for p in params.encoder:
+        x = body(p, x)
     return layernorm(params.enc_ln, x, cfg.norm_eps)
 
 
@@ -105,15 +111,19 @@ def decode_stack(
     self_caches=None,                          # stacked (L, ...), updated in place
     cache_pos=None,
 ):
-    for i, p in enumerate(params.decoder):
+    def body(i, p, x, kv):
         x = constrain(x)
         self_c = None if self_caches is None else {n: c[i] for n, c in self_caches.items()}
         h, _ = self_attention(p.self, cfg, layernorm(p.ln1, x, cfg.norm_eps), positions,
                               cache=self_c, cache_pos=cache_pos)
         x = x + h
-        kv = enc_out if cross_caches is None else {n: c[i] for n, c in cross_caches.items()}
         x = x + cross_attention(p.cross, cfg, layernorm(p.ln2, x, cfg.norm_eps), kv)
-        x = constrain(x + gelu_mlp(p.mlp, layernorm(p.ln3, x, cfg.norm_eps)))
+        return constrain(x + gelu_mlp(p.mlp, layernorm(p.ln3, x, cfg.norm_eps)))
+
+    body = _maybe_remat(body, cfg)
+    for i, p in enumerate(params.decoder):
+        kv = enc_out if cross_caches is None else {n: c[i] for n, c in cross_caches.items()}
+        x = body(i, p, x, kv)
     return x, self_caches
 
 

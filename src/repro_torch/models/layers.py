@@ -14,8 +14,11 @@ parameter in f32 and casts a matmul weight to the activations' dtype at
 each use (``p["w_q"].astype(x.dtype)``); the port casts it once, when it
 is made or converted, which gives the same numbers without reading the
 weights again in f32 at every step.  Parameters that are used in f32
-(norm scales, rwkv6's decay LoRA and bonus) stay f32.  Nothing needs a
-gradient: every parameter has ``requires_grad=False``.
+(norm scales, rwkv6's decay LoRA and bonus) stay f32.  A serving model
+needs no gradient: every parameter has ``requires_grad=False``.  A model
+built to train (``models/model.py::LM(master=True)``) stores every weight
+in f32 with ``requires_grad``, and the same casts at each use give the
+reference's f32 masters.
 """
 from __future__ import annotations
 

@@ -4,6 +4,7 @@
   init_params(generator, cfg)             — a model (``LM``) on the generator's device
   forward(params, cfg, batch)             — logits + aux (teacher-forced)
   hidden_states(params, cfg, batch)       — final-norm hidden states + aux
+  train_hidden_states(params, cfg, batch) — the same with autograd on (the loss)
   make_serve_cache / prefill / decode_step — serving paths
 
 ``params`` is an :class:`LM`, the JAX parameter tree as modules (its
@@ -12,7 +13,13 @@ written in: ``stack.<i>.attn.w_q``, vlm's ``stack.<u>.self.<j>.…``,
 hybrid's ``stack.units.<u>.mix.<i>.…``; ``models/convert.py``).
 ``batch`` holds ``tokens`` (B, S) integers, plus the family stubs: frames
 (B, T_enc, d) for audio, patches (B, P, d) for vlm.  The training loss
-(``loss_fn``) comes with the training slice (ROADMAP item 11f).
+(``launch/steps.py::loss_fn``) differentiates ``train_hidden_states``;
+``hidden_states`` and ``forward`` run in inference mode, for serving.
+
+``LM(..., master=True)`` is the model a train step updates: every
+parameter in f32 with ``requires_grad``, as the reference's f32 master
+parameters, each cast to the compute dtype at its use (the serving model
+keeps each weight in the dtype of its use, ``models/layers.py``).
 
 ``LM(..., kernels=False)`` runs the JAX package's plain attention and
 chunked time mix on whatever device it is on, in place of the flash
@@ -20,6 +27,7 @@ attention and WKV kernels; it is for tests and replays only.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -43,15 +51,18 @@ _STACKS = {
 class LM(nn.Module):
     """embed (V, d), final_norm, lm_head (d, V) unless tied, pos_embed
     (learned_pos), stack (the family's layer stack).  ``generator`` None
-    leaves the weights uninitialised on ``device``, to be filled by
-    ``models/convert.py`` or ``load_state_dict``."""
+    leaves the weights uninitialised on ``device`` (CUDA unless named), to
+    be filled by ``models/convert.py`` or ``load_state_dict``.
+    ``master`` keeps every parameter in f32 with ``requires_grad``."""
 
     def __init__(self, cfg, generator: Optional[torch.Generator] = None, device=None,
-                 kernels: bool = True):
+                 kernels: bool = True, master: bool = False):
         super().__init__()
         if cfg.family not in _STACKS:
             raise ValueError(cfg.family)
-        device = generator.device if generator is not None else torch.device(device or "cpu")
+        device = generator.device if generator is not None else resolve_device(device)
+        if master:   # the weights are stored in f32; the forward casts at each use
+            cfg = dataclasses.replace(cfg, dtype="float32")
         g, dt = generator, cdtype(cfg)
         self.embed = embed_init(g, (cfg.vocab_size, cfg.d_model), dtype=dt, device=device)
         self.final_norm = RMSNorm(cfg.d_model, device=device)
@@ -60,15 +71,19 @@ class LM(nn.Module):
         if cfg.learned_pos:
             self.pos_embed = embed_init(g, (32768, cfg.d_model), dtype=dt, device=device)
         self.stack = _STACKS[cfg.family](g, cfg, device=device, kernels=kernels)
+        if master:
+            for p in self.parameters():
+                p.requires_grad_(True)
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
 
-def init_params(generator: torch.Generator, cfg, kernels: bool = True) -> LM:
+def init_params(generator: torch.Generator, cfg, kernels: bool = True,
+                master: bool = False) -> LM:
     """A model with random weights drawn from ``generator``, on its device."""
-    return LM(cfg, generator=generator, kernels=kernels)
+    return LM(cfg, generator=generator, kernels=kernels, master=master)
 
 
 # ---------------------------------------------------------------------------
@@ -115,11 +130,17 @@ def _teacher_forced(params, cfg, batch):
     return x, aux
 
 
+def train_hidden_states(params, cfg, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Final-norm hidden states (B, S, d) + aux loss — pre-unembed — under
+    the caller's grad mode: what the training loss differentiates."""
+    x, aux = _teacher_forced(params, cfg, batch)
+    return rmsnorm(params.final_norm, x, cfg.norm_eps), aux
+
+
 @torch.inference_mode()
 def hidden_states(params, cfg, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
     """Final-norm hidden states (B, S, d) + aux loss — pre-unembed."""
-    x, aux = _teacher_forced(params, cfg, batch)
-    return rmsnorm(params.final_norm, x, cfg.norm_eps), aux
+    return train_hidden_states(params, cfg, batch)
 
 
 def unembed_weight(params, cfg):

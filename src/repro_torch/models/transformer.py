@@ -17,11 +17,24 @@ S_max, KVH, hd) for attention, (U, n_self, ...) for vlm, the hybrid's
 {"units": [(U, ...) per block of the pattern], "tail": [...]} with a
 ``slot_pos`` rolling window for local attention and {conv, h} for RG-LRU,
 (L, B, ...) for rwkv6's state — and each layer updates its slice in place.
+
+Where the reference rematerialises a scanned body (``_maybe_remat``:
+``cfg.remat``, the full configs' default), the port checkpoints the same
+body with ``torch.utils.checkpoint``: its activations are recomputed in
+backward instead of kept.  That only matters where autograd records
+(training); a serving call runs the body as it is.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.models.attention import attn_init, cross_attention, cross_kv, self_attention
 from repro_torch.models.layers import RMSNorm, _device, cdtype, rmsnorm, swiglu, swiglu_init
@@ -29,6 +42,34 @@ from repro_torch.models.moe import moe_ffn, moe_init
 from repro_torch.models.rglru import rglru_block, rglru_block_init, rglru_init_state
 from repro_torch.models.rwkv6 import rwkv_init_state, rwkv_layer, rwkv_layer_init
 from repro_torch.models.shardctx import constrain
+
+
+# remat_policy "dots": the reference's dots_with_no_batch_dims_saveable keeps
+# the outputs of matmuls without batch dimensions (x @ w: aten.mm / addmm;
+# the attention and expert einsums are batched, aten.bmm, and recomputed)
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(fn, cfg):
+    """``fn`` checkpointed where ``cfg.remat`` asks for it and autograd
+    records; ``remat_policy="dots"`` keeps the matmuls' outputs."""
+    if not cfg.remat:
+        return fn
+    kw = {}
+    if getattr(cfg, "remat_policy", "full") == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+
+    def remat(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return remat
 
 
 def _zero(x: torch.Tensor) -> torch.Tensor:
@@ -116,11 +157,16 @@ def dense_stack_apply(params, cfg, x, positions, caches=None, cache_pos=None):
     """caches: stacked (L, ...) KV dicts or None, updated in place.
     Returns (x, caches, aux)."""
     moe = cfg.family == "moe"
+
+    def body(p, x, cache):
+        x, _, a = layer_apply(p, cfg, constrain(x), positions, moe=moe, cache=cache,
+                              cache_pos=cache_pos)
+        return constrain(x), a
+
+    body = _maybe_remat(body, cfg)
     aux = _zero(x)
     for i, p in enumerate(params):
-        x, _, a = layer_apply(p, cfg, constrain(x), positions, moe=moe,
-                              cache=_slice(caches, i), cache_pos=cache_pos)
-        x = constrain(x)
+        x, a = body(p, x, _slice(caches, i))
         aux = aux + a
     return x, caches, aux
 
@@ -150,12 +196,16 @@ def vlm_stack_init(generator, cfg, device=None, kernels: bool = True) -> nn.Modu
 def vlm_stack_apply(params, cfg, x, positions, patch_kv, caches=None, cache_pos=None):
     """patch_kv: the per-unit cross {"k","v"} (U, B, P, KVH, hd); caches: the
     (U, n_self, ...) KV dicts or None, updated in place."""
-    for u, unit in enumerate(params):
+    def body(u, unit, x, pkv):
         for j, sp in enumerate(unit.self):
             x, _, _ = layer_apply(sp, cfg, constrain(x), positions, moe=False,
                                   cache=_slice(caches, u, j), cache_pos=cache_pos)
             x = constrain(x)
-        x = constrain(cross_layer_apply(unit.cross, cfg, x, _slice(patch_kv, u)))
+        return constrain(cross_layer_apply(unit.cross, cfg, x, pkv))
+
+    body = _maybe_remat(body, cfg)
+    for u, unit in enumerate(params):
+        x = body(u, unit, x, _slice(patch_kv, u))
     return x, caches, _zero(x)
 
 
@@ -250,12 +300,17 @@ def hybrid_stack_apply(params, cfg, x, positions, caches=None, cache_pos=None):
     """caches: {"units": [stacked (U, ...) per block], "tail": [...]} or
     None, updated in place."""
     pat = cfg.block_pattern
-    for u, unit in enumerate(params.units):
+
+    def body(u, unit, x):
         for i, kind in enumerate(pat):
             c_i = None if caches is None else _slice(caches["units"][i], u)
             x = _hybrid_block(kind, unit.mix[i], unit.mlp[i], unit.ln_mix[i], unit.ln_mlp[i],
                               cfg, constrain(x), positions, c_i, cache_pos)
-        x = constrain(x)
+        return constrain(x)
+
+    body = _maybe_remat(body, cfg)
+    for u, unit in enumerate(params.units):
+        x = body(u, unit, x)
     for i, p in enumerate(getattr(params, "tail", ())):
         c_i = None if caches is None else caches["tail"][i]
         x = _hybrid_block(pat[i], p.mix, p.mlp, p.ln_mix, p.ln_mlp, cfg, x, positions, c_i,
@@ -274,10 +329,14 @@ def rwkv_stack_init(generator, cfg, device=None, kernels: bool = True) -> nn.Mod
 
 def rwkv_stack_apply(params, cfg, x, caches=None):
     """caches: the stacked (L, ...) state or None, updated in place."""
+    def body(p, x, st):
+        x, new_st = rwkv_layer(p, cfg, constrain(x), st)
+        return constrain(x), new_st
+
+    body = _maybe_remat(body, cfg)
     for i, p in enumerate(params):
         st = _slice(caches, i)
-        x, new_st = rwkv_layer(p, cfg, constrain(x), st)
-        x = constrain(x)
+        x, new_st = body(p, x, st)
         _copy_state(st, new_st)
     return x, caches, _zero(x)
 

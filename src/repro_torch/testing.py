@@ -14,6 +14,12 @@ The LM kernels (flash_attn, wkv) are held to their plain versions by
 ``flash_close`` and ``wkv_close``, one tolerance table for every caller;
 ``attention_calls`` is the flash_attn launches a model's prefill or decode
 step must show.
+
+The train step on the card is held to its CPU run by ``train_close``: the
+metrics within TRAIN_METRIC_RTOL, the parameters within one Adam step a
+step (the sum of the steps' ``lr``: a near-zero gradient may flip the sign
+of its bias-corrected step on either device); ``train_batches`` and
+``train_run`` give both runs the same batches and weights.
 """
 from __future__ import annotations
 
@@ -142,3 +148,71 @@ def attention_calls(cfg, prefill: bool) -> int:
     if cfg.family == "audio":
         return 2 * cfg.num_layers + (cfg.num_encoder_layers if prefill else 0)
     return 0                  # ssm: attention-free
+
+
+# ---------------------------------------------------------------------------
+# the train step on the card against its CPU run
+# ---------------------------------------------------------------------------
+
+TRAIN_METRIC_RTOL = 1e-4
+TRAIN_METRICS = ("loss", "ce", "aux", "grad_norm", "lr")
+
+
+def train_batches(cfg, steps: int, batch: int, seq: int, seed: int = 0):
+    """``make_lm_batch`` batches 0..steps-1 of the token stream, with seeded
+    N(0, 1) frames (audio) or patches (vlm)."""
+    from repro_torch.data.pipeline import make_lm_batch
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(steps):
+        b = make_lm_batch(seed, i, batch, seq, cfg.vocab_size)
+        if cfg.family == "audio":
+            b["frames"] = rng.standard_normal((batch, cfg.encoder_seq, cfg.d_model),
+                                              dtype=np.float32)
+        if cfg.family == "vlm":
+            b["patches"] = rng.standard_normal((batch, cfg.num_patches, cfg.d_model),
+                                               dtype=np.float32)
+        out.append(b)
+    return out
+
+
+def train_run(cfg, weights, device, batches, opts):
+    """A model to train holding ``weights`` (a state dict) on ``device``,
+    trained on ``batches``: (the model, [each step's metrics as floats])."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import LM
+    from repro_torch.optim.adamw import adamw_init
+
+    model = LM(cfg, device=device, kernels=False, master=True)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(weights[name])
+    opt = adamw_init(model)
+    step = make_train_step(cfg, None, opts)
+    metrics = []
+    for b in batches:
+        b = {k: torch.as_tensor(v).to(device) for k, v in b.items()}
+        model, opt, m = step(model, opt, b)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return model, metrics
+
+
+def train_close(got_model, got_metrics, want_model, want_metrics) -> dict:
+    """Raise AssertionError unless a train run matches another (metrics and
+    parameters, ``train_close``'s tolerances); return the largest share of
+    each tolerance used: {"metrics": x, "params": y}."""
+    used = {"metrics": 0.0, "params": 0.0}
+    for i, (g, w) in enumerate(zip(got_metrics, want_metrics, strict=True)):
+        for key in TRAIN_METRICS:
+            tol = TRAIN_METRIC_RTOL * abs(w[key]) + 1e-7
+            share = abs(g[key] - w[key]) / tol
+            assert share <= 1.0, (f"step {i} {key}", g[key], w[key])
+            used["metrics"] = max(used["metrics"], share)
+    bound = sum(m["lr"] for m in want_metrics)
+    want = dict(want_model.named_parameters())
+    for name, p in got_model.named_parameters():
+        err = float((p.detach().cpu() - want[name].detach().cpu()).abs().max())
+        assert err <= bound, (name, err, bound)
+        used["params"] = max(used["params"], err / bound)
+    return used

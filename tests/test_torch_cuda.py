@@ -1533,3 +1533,121 @@ def test_lm_server_on_card(cuda):
         assert sorted(r.rid for r in srv.finished) == [0, 1, 2]
         assert all(len(r.out) == 4 for r in reqs)
         assert counter.launches - before == launches, arch
+
+
+# ---------------------------------------------------------------------------
+# training on the card: the train step (the plain route, f32 masters)
+# against its CPU run, the kernels' refusal under autograd, the trainer's
+# failure and resume; decode at a full cache through the kernel route
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCHS = ["qwen3-0.6b", "olmoe-1b-7b", "rwkv6-3b", "recurrentgemma-2b",
+               "llama-3.2-vision-11b", "whisper-medium"]
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """3 train steps of the reduced model (f32, TF32 off) on the card and
+    on the CPU from the same weights and batches: metrics and parameters
+    within train_close's tolerances, and no kernel launched (the train
+    step runs the plain route, as the reference trains)."""
+    from repro_torch.launch.steps import StepOptions, init_train_state
+    from repro_torch.testing import train_batches, train_close, train_run
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = _lm_cfg(arch)
+    weights = init_train_state(cfg, torch.Generator().manual_seed(5))[0].state_dict()
+    batches = train_batches(cfg, 3, 2, 16)
+    opts = StepOptions(ce_chunk=8)
+    want = train_run(cfg, weights, "cpu", batches, opts)
+    before = (flash_attention_cuda.launches, wkv_cuda.launches)
+    got = train_run(cfg, weights, cuda, batches, opts)
+    assert (flash_attention_cuda.launches, wkv_cuda.launches) == before
+    assert next(got[0].parameters()).device.type == cuda.type
+    train_close(*got, *want)
+
+
+def test_kernels_refuse_autograd_on_card(cuda):
+    """flash_attention_cuda and wkv_cuda on card tensors that require grad
+    raise and launch nothing; under no_grad they launch."""
+    q = torch.randn(4, 32, 64, device=cuda)
+    r = torch.randn(4, 32, 64, device=cuda)
+    lw, u = -torch.rand(4, 32, 64, device=cuda), torch.randn(4, 64, device=cuda)
+    before = (flash_attention_cuda.launches, wkv_cuda.launches)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention_cuda(q.clone().requires_grad_(True), q, q, sm_scale=0.125)
+    with pytest.raises(RuntimeError, match="no backward"):
+        wkv_cuda(r, r, r.clone().requires_grad_(True), lw, u, chunk=16)
+    assert (flash_attention_cuda.launches, wkv_cuda.launches) == before
+    with torch.no_grad():
+        flash_attention_cuda(q.clone().requires_grad_(True), q, q, sm_scale=0.125)
+        wkv_cuda(r, r, r.clone().requires_grad_(True), lw, u, chunk=16)
+    assert (flash_attention_cuda.launches, wkv_cuda.launches) == (before[0] + 1, before[1] + 1)
+
+
+def test_a_master_model_serves_through_the_kernels_on_card(cuda):
+    """A model built to train (f32 masters) with kernels=True: its train
+    step raises at the first attention, and its serving path (inference
+    mode) launches flash_attn once a layer a prefill and a decode step."""
+    from repro_torch.launch.steps import StepOptions, make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.testing import train_batches
+
+    cfg = _lm_cfg("qwen3-0.6b")
+    lm = M.init_params(torch.Generator(cuda).manual_seed(0), cfg, kernels=True, master=True)
+    b = train_batches(cfg, 1, 2, 16)[0]
+    before = flash_attention_cuda.launches
+    with pytest.raises(RuntimeError, match="kernels=False"):
+        make_train_step(cfg, None, StepOptions(ce_chunk=8))(lm, adamw_init(lm), b)
+    assert flash_attention_cuda.launches == before
+    tokens = np.asarray(b["tokens"])
+    out = _lm_run(lm, cfg, tokens, 9)
+    assert flash_attention_cuda.launches - before == _lm_launches(cfg, 1, 7)[1] == 8 * 2
+    assert all(bool(torch.isfinite(x).all()) for x in out)
+
+
+def test_trainer_failure_and_resume_on_card(cuda, tmp_path):
+    """launch/train.py::main on the card (its default device): an injected
+    failure restored from the checkpoint, then a resume from disk."""
+    import contextlib
+    import io
+    import json
+
+    from repro_torch.launch import train
+
+    def run(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert train.main(argv) == 0
+        return buf.getvalue()
+
+    base = ["--arch", "qwen3-0.6b", "--smoke", "--global-batch", "4", "--seq-len", "32",
+            "--ckpt-dir", str(tmp_path), "--resume", "auto"]
+    out = run(base + ["--steps", "12", "--ckpt-every", "4", "--fail-at-step", "6",
+                      "--log-every", "4"])
+    assert "RESTORE after" in out
+    rec = json.loads(out.strip().splitlines()[-1])
+    assert rec["failures"] == 1 and np.isfinite(rec["final_loss"])
+    out = run(base + ["--steps", "14", "--log-every", "2"])
+    assert "resumed from step 12" in out
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "olmoe-1b-7b", "llama-3.2-vision-11b",
+                                  "whisper-medium"])
+def test_lm_decode_past_the_caches_end_on_card(cuda, arch):
+    """A prompt of max_seq tokens and decode steps at max_seq and past it
+    (ROADMAP fault 3.1) through the kernel route on the card: the write
+    clamps to the last slot, the key cut stays at the cache's length, and
+    the logits match the CPU path's."""
+    from repro_torch.testing import FLASH_TOL, close_within
+
+    cfg = _lm_cfg(arch)
+    tokens = np.random.default_rng(12).integers(0, cfg.vocab_size, (2, 19)).astype(np.int32)
+    want = _lm_run(_lm_on(cfg, "cpu"), cfg, tokens, 16, max_seq=16)
+    before = flash_attention_cuda.launches
+    got = _lm_run(_lm_on(cfg, cuda), cfg, tokens, 16, max_seq=16)
+    assert flash_attention_cuda.launches - before == _lm_launches(cfg, 1, 3)[1]
+    for g, w in zip(got, want):
+        close_within(g, w, *FLASH_TOL[torch.float32])
+        assert torch.equal(g.argmax(-1), w.argmax(-1))

@@ -22,7 +22,11 @@ from repro.launch import serve as jax_serve  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch.serve import Request, Server  # noqa: E402
-from repro_torch.launch.steps import make_decode_step, make_prefill_step  # noqa: E402
+from repro_torch.launch.steps import (  # noqa: E402
+    make_decode_step,
+    make_prefill_step,
+    make_train_step,
+)
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from util_lm import reduced  # noqa: E402
@@ -126,10 +130,10 @@ def test_server_keeps_the_references_surface():
 def test_a_larger_mesh_raises_and_so_do_foreign_params():
     cfg = _cfg()
     mesh = make_host_mesh(2, 1, devices="cpu")
-    for build in (make_prefill_step, make_decode_step):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+    for build in (make_prefill_step, make_decode_step, make_train_step):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 11f-b"):
             build(cfg, mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 11f-b"):
         Server(cfg, batch=1, max_seq=16, mesh=mesh)
     srv = Server(cfg, batch=1, max_seq=16, mesh=make_host_mesh(1, 1, devices="cpu"))
     assert srv.device == torch.device("cpu")
@@ -223,6 +227,53 @@ def test_server_gives_the_jax_servers_tokens(mix, arch):
     _serve_recorded(srv, got)
     _assert_same_tokens(got, want, want_log)
     assert [r.rid for r in srv.finished] == [r.rid for r in jsrv.finished]
+
+
+# a prompt of exactly max_seq tokens: the first decode runs at position
+# max_seq, where the reference's dynamic_update_slice clamps the write to the
+# cache's last slot (ROADMAP fault 3.1); the JAX Server's tokens on the
+# reduced configs, one arch of every family
+FULL_PROMPT_TOKENS = {"qwen3-0.6b": [226, 147], "olmoe-1b-7b": [23, 239],
+                      "llama-3.2-vision-11b": [11, 135], "whisper-medium": [84, 84],
+                      "recurrentgemma-2b": [218, 116], "rwkv6-3b": [233, 174]}
+
+
+@pytest.mark.parametrize("arch", sorted(FULL_PROMPT_TOKENS))
+def test_a_prompt_of_max_seq_tokens_serves_the_jax_servers_tokens(arch):
+    jcfg, cfg = reduced(arch, jax_cfg=True), _cfg(arch)
+    jsrv = jax_serve.Server(jcfg, batch=1, max_seq=16, seed=0)
+    srv = Server(cfg, batch=1, max_seq=16, device="cpu",
+                 params=params_from_jax(jax.tree.map(np.asarray, jsrv.params), cfg,
+                                        device="cpu"))
+    prompt = (np.arange(16) * 7 % 200).astype(np.int32)
+    for s, R in ((jsrv, jax_serve.Request), (srv, Request)):
+        assert s.admit(R(0, prompt, max_new=4))
+        while s.occupancy():
+            s.step()
+    assert srv.finished[0].out == jsrv.finished[0].out == FULL_PROMPT_TOKENS[arch]
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "whisper-medium"])
+def test_decode_past_the_caches_end_matches_jax(arch):
+    """decode_step at positions max_seq and max_seq + 3 on a full cache:
+    the write clamps to the last slot, every key stays visible, the logits
+    and the cache are the JAX decode_step's."""
+    from repro.models import model as JM
+    from util_lm import LOGIT_TOL, assert_cache_close, batch as lm_batch, close, np_tree
+
+    jcfg, cfg = reduced(arch, jax_cfg=True), _cfg(arch)
+    tree = np_tree(JM.init_params(jax.random.key(2), jcfg))
+    model = params_from_jax(tree, cfg, device="cpu")
+    b = lm_batch(cfg, 1, 8, 3)
+    jcache = JM.prefill(tree, jcfg, jax.tree.map(jax.numpy.asarray, b),
+                        JM.make_serve_cache(jcfg, 1, 8))[1]
+    tcache = M.prefill(model, cfg, b, M.make_serve_cache(cfg, 1, 8, device="cpu"))[1]
+    for pos, tok in ((8, 5), (11, 9)):
+        want, jcache = JM.decode_step(tree, jcfg, jax.numpy.full((1, 1), tok, jax.numpy.int32),
+                                      jcache, jax.numpy.int32(pos))
+        got, tcache = M.decode_step(model, cfg, np.full((1, 1), tok, np.int32), tcache, pos)
+        close(got, want, LOGIT_TOL)
+    assert_cache_close(tcache, np_tree(jcache), LOGIT_TOL)
 
 
 def test_rwkv_decode_starts_from_the_cache_not_the_prompt():
