@@ -250,7 +250,25 @@ and training on one card:
            failures 1), then a new process resuming from its last
            checkpoint; (d) flash_attention_cuda and wkv_cuda raise on an
            input that requires grad, and a model built to train with
-           kernels=True still serves through them, every launch asserted.
+           kernels=True still serves through them, every launch asserted;
+
+and training and serving over a mesh whose positions all sit on the card:
+
+  phase 17 (a) qwen3-0.6b at full width (as phase 16 (b)), 3 steps on a
+           (2, 2) mesh in "2d" (launch/placement.py's blocks, the mesh step
+           of launch/steps.py) and 3 on (1, 1) from one init: losses and
+           grad_norm within 2^-7, the parameters within two Adam steps a
+           step (the share used printed); step ms, state, held and peak
+           memory, the bytes gathered and reduced a step, the blocks a
+           position, one (2, 2) step under torch.profiler; (b)
+           launch/compressed_train.py on a (2, 1) mesh, batch 4 x 1,024, 4
+           steps with exact sync and with psum_int8: both fall, within
+           0.05 of each other, the int8 payload and step ms; (c) Server
+           over a (2, 1) mesh: phase 14 (a)'s and (c)'s requests give
+           phase 14's tokens, with 7,168 flash_attn and 128 wkv launches
+           (asserted); (d) launch/train.py: checkpoints saved on --data-par
+           4 --model-par 2 and on one device, each resumed on 2 x 2 by a
+           process of its own ("resumed from step 4").
 
 Every flash_attn and wkv comparison goes through repro_torch.testing
 (flash_close, wkv_close: one tolerance table with the card tests) and
@@ -2950,7 +2968,7 @@ def lm_serve(smi, dev, phase, label, cfg, batch, prompts, max_new, max_seq, rese
     flip: counted, its gap held to route_flip's tolerance; the logits are
     held to lm_tolerance or MOE_SPREAD_MARGIN x the two plain routes'
     distance, the larger.  Returns ({counter: launches}, max |d| of the
-    logits, the model)."""
+    logits, the model, each request's tokens)."""
     import collections
 
     from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda
@@ -3138,9 +3156,10 @@ def lm_serve(smi, dev, phase, label, cfg, batch, prompts, max_new, max_seq, rese
                         f"layer {layer}, router logit gap {gap:.3e} <= tol {gap_tol:.3e}"
                         for kind, rid, pos, layer, gap, gap_tol in flips[:8]))
     params = srv.params
+    tokens = [list(r.out) for r in reqs]
     del srv, plain, caches, calls
     torch.cuda.empty_cache()
-    return launches, worst, params
+    return launches, worst, params, tokens
 
 
 def phase14_kernels(dev, name):
@@ -3197,7 +3216,8 @@ def phase14_kernels(dev, name):
 
 def phase14(smi, name, root, dev, reset_counts, counters):
     """Returns ({counter: main-path launches}, {bf16 | f32 | wkv: worst |d| of
-    the kernels at the main path's shapes})."""
+    the kernels at the main path's shapes}, {run label: each request's
+    tokens})."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3206,10 +3226,12 @@ def phase14(smi, name, root, dev, reset_counts, counters):
 
     t_phase = time.perf_counter()
     launches = {"flash_f32": 0, "flash_bf16": 0, "wkv": 0}
+    tokens = {}
     for label, arch, dtype, batch, n_req, max_new in LM_RUNS:
         cfg = dataclasses.replace(get_config(arch), dtype=dtype)
-        got, _, params = lm_serve(smi, dev, 14, label, cfg, batch, [LM_PROMPT] * n_req, max_new,
-                                  LM_MAX_SEQ, reset_counts, counters)
+        got, _, params, tokens[label] = lm_serve(smi, dev, 14, label, cfg, batch,
+                                                 [LM_PROMPT] * n_req, max_new, LM_MAX_SEQ,
+                                                 reset_counts, counters)
         del params
         if arch == "rwkv6-3b":
             launches["wkv"] += got[wkv_cuda]
@@ -3240,7 +3262,7 @@ def phase14(smi, name, root, dev, reset_counts, counters):
     errs = phase14_kernels(dev, name)
     print(f"phase 14: {time.perf_counter() - t_phase:.1f} s; main-path launches flash_attn f32 "
           f"{launches['flash_f32']}, bf16 {launches['flash_bf16']}, wkv {launches['wkv']}")
-    return launches, errs
+    return launches, errs, tokens
 
 
 # phase 15: the remaining serving families at full published width, through
@@ -3407,7 +3429,7 @@ def phase15(smi, name, root, dev, reset_counts, counters):
             cfg = dataclasses.replace(cfg, num_layers=layers)
         routes = RouteLog() if cfg.family == "moe" else None
         try:
-            got, _, params = lm_serve(smi, dev, 15, label, cfg, batch, list(prompts), max_new,
+            got, _, params, _ = lm_serve(smi, dev, 15, label, cfg, batch, list(prompts), max_new,
                                       max_seq, reset_counts, counters, profile=profile,
                                       routes=routes)
         finally:
@@ -3704,6 +3726,303 @@ def phase16(smi, name, root, dev, reset_counts, counters):
     out = phase16_autograd(dev, reset_counts, counters)
     print(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+# phase 17: training and serving over a mesh whose positions all sit on the
+# one card (launch/placement.py, the mesh train step, the compressed
+# trainer, Server over a mesh)
+MESH_TRAIN = ("qwen3-0.6b", 8, 1024, 512, 3)   # (a): arch, batch, seq, ce_chunk, steps
+MESH_COMP = ("qwen3-0.6b", 4, 1024, 512, 4)    # (b): the compressed trainer
+# (a)'s tolerance.  The compute is bf16 with f32 masters: each bf16 product
+# rounds its output once (unit 2^-9), and the two meshes round at other
+# partial sums (a weight gradient over a slice of 4 rows against all 8;
+# cuBLAS may pick another kernel for the other shape), so a gradient
+# element differs by up to two such roundings, 2 x 2^-9 relative.  The
+# loss and the global grad norm are averages over such elements and over
+# tokens: rtol MESH_RTOL = 2^-7, twice that per-element bound (the
+# reference holds its f32 (2, 2) and (1, 1) losses to 2e-3,
+# tests/test_distributed.py).  The parameters: within two Adam steps a
+# step (twice the sum of the steps' lr), as a gradient element below the
+# rounding may take the other sign at every step and Adam moves it by up to
+# lr either way.
+MESH_RTOL = 2.0 ** -7
+COMP_GAP = 0.05          # tests/test_compressed_train.py's bound
+
+
+def mesh_train_run(cfg, dev, shape, batches, chunk, profile=False):
+    """(whole parameters on the host, [metrics], [step ms], stats) of the
+    train step on a mesh of ``shape`` positions all on ``dev``, from
+    init_train_state's weights; with ``profile``, one more step under
+    torch.profiler (step_profile) in stats["profile"]."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.placement import MeshParams, place_train_state
+    from repro_torch.launch.steps import StepOptions, init_train_state, make_train_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    n = shape[0] * shape[1]
+    mesh = make_host_mesh(*shape, devices=[dev] * n)
+    params, opt = init_train_state(cfg, device=dev)
+    if n > 1:
+        params, opt = place_train_state(params, opt, mesh)
+    step = make_train_step(cfg, mesh, StepOptions(ce_chunk=chunk), total_steps=len(batches))
+    state = torch.cuda.memory_allocated() - base
+    metrics, ms, moved = [], [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        got = {k: float(v) for k, v in m.items()}             # waits for the step
+        ms.append((time.perf_counter() - t) * 1e3)
+        metrics.append(got)
+        moved.append(dict(getattr(step, "stats", {"gathered": 0, "reduced": 0})))
+        assert all(np.isfinite(v) for v in got.values()), got
+    stats = {"state": state, "held": torch.cuda.memory_allocated() - base,
+             "peak": torch.cuda.max_memory_allocated() - base, "moved": moved}
+    if isinstance(params, MeshParams):
+        stats["blocks"] = params.block_bytes()
+        whole = {k: v.cpu() for k, v in params.state_dict().items()}
+    else:
+        whole = {k: v.detach().cpu() for k, v in params.named_parameters()}
+    if profile:     # after the state is read: this step is not compared
+        box = {}
+
+        def one_step():
+            box["out"] = step(params, opt, batches[-1])
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        stats["profile"] = step_profile(one_step, n_top=6)
+        stats["profile_wall"] = (time.perf_counter() - t) * 1e3
+        params, opt = box["out"][:2]
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return whole, metrics, ms, stats
+
+
+def phase17_sharded(smi, dev):
+    """(a) qwen3-0.6b at full width: 3 steps on a (2, 2) mesh in "2d" and 3
+    on (1, 1) from the same init, held to each other."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_lm_batch
+
+    arch, b, seq, chunk, steps = MESH_TRAIN
+    cfg = get_config(arch)
+    assert cfg.dtype == "bfloat16" and cfg.remat
+    batches = [{k: torch.as_tensor(v).to(dev) for k, v in
+                make_lm_batch(0, i, b, seq, cfg.vocab_size).items()} for i in range(steps)]
+    one, m1, ms1, st1 = mesh_train_run(cfg, dev, (1, 1), batches, chunk)
+    four, m4, ms4, st4 = mesh_train_run(cfg, dev, (2, 2), batches, chunk, profile=True)
+    used = 0.0
+    for i, (g, w) in enumerate(zip(m4, m1)):
+        for key in ("loss", "grad_norm"):
+            tol = MESH_RTOL * abs(w[key])
+            assert abs(g[key] - w[key]) <= tol, (i, key, g[key], w[key])
+            used = max(used, abs(g[key] - w[key]) / tol)
+        assert g["lr"] == w["lr"], (i, g["lr"], w["lr"])
+    bound = 2.0 * sum(m["lr"] for m in m1)
+    p_used = 0.0
+    for k, w in one.items():
+        err = float((four[k] - w).abs().max())
+        assert err <= bound, (k, err, bound)
+        p_used = max(p_used, err / bound)
+    gib = 2.0 ** 30
+    fmt = lambda xs: ", ".join(f"{x:.1f}" for x in xs)   # noqa: E731
+    print(f"phase 17 (a) {arch} full width (bf16 compute, f32 masters, remat) on {smi}: batch {b} "
+          f"x {seq}, {steps} steps from one init; (2, 2) \"2d\" losses "
+          f"{', '.join('%.5f' % m['loss'] for m in m4)}, grad_norm "
+          f"{', '.join('%.5f' % m['grad_norm'] for m in m4)}; (1, 1) losses "
+          f"{', '.join('%.5f' % m['loss'] for m in m1)}, grad_norm "
+          f"{', '.join('%.5f' % m['grad_norm'] for m in m1)}; tol used: loss and grad_norm "
+          f"{used:.3f} of rtol {MESH_RTOL:.5f}, parameters {p_used:.3f} of two Adam steps a "
+          f"step ({bound:.3e})")
+    print(f"  phase 17 (a) step ms: (2, 2) {fmt(ms4)} (median {np.median(ms4):.1f}), (1, 1) "
+          f"{fmt(ms1)} (median {np.median(ms1):.1f}); state (masters + AdamW) (2, 2) "
+          f"{st4['state'] / gib:.2f} GiB, (1, 1) {st1['state'] / gib:.2f} GiB; held after the "
+          f"steps {st4['held'] / gib:.2f} / {st1['held'] / gib:.2f} GiB, peak "
+          f"{st4['peak'] / gib:.2f} / {st1['peak'] / gib:.2f} GiB")
+    last = st4["moved"][-1]
+    print(f"  phase 17 (a) (2, 2) a step: gathered into the compute model "
+          f"{last['gathered'] / gib:.3f} GiB, gradients reduced onto the blocks' owners "
+          f"{last['reduced'] / gib:.3f} GiB; parameter blocks a position "
+          f"{', '.join(f'{x / gib:.3f}' for x in st4['blocks'])} GiB (x3 with m and v)")
+    busy, groups, top = st4["profile"]
+    parts = "; ".join(f"{g} {t:.1f} ms ({n} kernels)"
+                      for g, (t, n) in sorted(groups.items(), key=lambda x: -x[1][0]))
+    print(f"  phase 17 (a) one more (2, 2) step under torch.profiler: device busy {busy:.1f} ms "
+          f"of the median step's {np.median(ms4):.1f} ms (idle share "
+          f"{1.0 - busy / np.median(ms4):.3f}; this step's wall with the profiler "
+          f"{st4['profile_wall']:.1f} ms): {parts}")
+    for t, n, key in top:
+        print(f"    {t:8.1f} ms {n:6d} x {key[:110]}")
+    return used, p_used
+
+
+def phase17_compressed(smi, dev):
+    """(b) the compressed trainer at full width on a (2, 1) mesh of the card,
+    exact sync then int8, 4 steps of batch 4 x 1,024 each."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_lm_batch
+    from repro_torch.launch.compressed_train import init_error, make_compressed_train_step
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import StepOptions, init_train_state
+    from repro_torch.optim.compress import compressed_bytes
+
+    arch, b, seq, chunk, steps = MESH_COMP
+    cfg = get_config(arch)
+    mesh = make_host_mesh(2, 1, devices=[dev] * 2)
+    batches = [{k: torch.as_tensor(v).to(dev) for k, v in
+                make_lm_batch(1, i, b, seq, cfg.vocab_size).items()} for i in range(steps)]
+    traj, times = {}, {}
+    for compress in (False, True):
+        torch.cuda.empty_cache()
+        params, opt = init_train_state(cfg, device=dev)
+        err = init_error(params, mesh)
+        step = make_compressed_train_step(cfg, mesh, "data", StepOptions(ce_chunk=chunk),
+                                          total_steps=steps, compress=compress)
+        losses, ms = [], []
+        for bt in batches:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, opt, err, m = step(params, opt, err, bt)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t) * 1e3)
+            assert np.isfinite(losses[-1]), losses
+        assert losses[-1] < losses[0], (compress, losses)
+        traj[compress], times[compress] = losses, ms
+        payload = compressed_bytes(dict(params.named_parameters()))
+        del params, opt, err, step
+    gap = max(abs(a - c) for a, c in zip(traj[False], traj[True]))
+    assert gap < COMP_GAP, (traj, gap)
+    torch.cuda.empty_cache()
+    print(f"phase 17 (b) {arch} full width, make_compressed_train_step on a (2, 1) mesh of "
+          f"{smi}, batch {b} x {seq}: exact sync losses "
+          f"{', '.join('%.5f' % x for x in traj[False])}, int8 + error feedback "
+          f"{', '.join('%.5f' % x for x in traj[True])}; largest gap {gap:.5f} (bound "
+          f"{COMP_GAP}); int8 payload {payload / 2**20:.1f} MiB a step (compressed_bytes; f32 "
+          f"{4 * payload / 2**20:.1f} MiB); step ms exact "
+          f"{', '.join(f'{x:.1f}' for x in times[False])}, int8 "
+          f"{', '.join(f'{x:.1f}' for x in times[True])}")
+    return gap
+
+
+def phase17_serve(smi, dev, reset_counts, counters, want_tokens):
+    """(c) Server over a (2, 1) mesh of the card: phase 14 (a)'s and (c)'s
+    runs, the same tokens, the same launches."""
+    import collections
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda
+    from repro_torch.kernels.wkv.kernel import wkv_cuda
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import Request, Server
+
+    launches = {}
+    for label, arch, dtype, batch, n_req, max_new in LM_RUNS:
+        if label == "b":
+            continue
+        cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+        torch.cuda.empty_cache()
+        mesh = make_host_mesh(2, 1, devices=[dev] * 2)
+        srv = Server(cfg, batch, LM_MAX_SEQ, mesh=mesh, seed=LM_SEED)
+        assert len(srv.row_params) == 1, "a device that holds the model took a second copy"
+        rng = np.random.default_rng(LM_SEED)
+        reqs = [Request(i, rng.integers(0, cfg.vocab_size, LM_PROMPT).astype(np.int32), max_new)
+                for i in range(n_req)]
+        pending = collections.deque(reqs)
+        reset_counts()
+        t0 = time.perf_counter()
+        while pending or srv.occupancy():
+            while pending and srv.admit(pending[0]):
+                pending.popleft()
+            srv.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {fn: fn.launches for fn in counters}
+        if arch == "rwkv6-3b":
+            want = {wkv_cuda: n_req * cfg.num_layers}
+        else:
+            want = {flash_attention_cuda: 7168}
+            assert flash_attention_cuda.bf16_launches == 7168
+        assert {fn: n for fn, n in got.items() if n} == want, (label, got, want)
+        launches[label] = sum(want.values())
+        tokens = [list(r.out) for r in reqs]
+        assert tokens == want_tokens[label], (label, tokens, want_tokens[label])
+        total = sum(len(t) for t in tokens)
+        print(f"phase 17 (c) Server over a (2, 1) mesh of {smi}, {cfg.name} {dtype}: slots "
+              f"{batch} ({batch // 2} a data row), {n_req} requests x {LM_PROMPT} prompt tokens "
+              f"x max_new {max_new} in {wall:.2f} s ({total / wall:.1f} tokens/s); tokens equal "
+              f"to phase 14 ({label})'s; launches "
+              f"{', '.join(f'{fn.__name__} {n}' for fn, n in want.items())} (asserted)")
+        del srv
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase17_trainer(smi, root):
+    """(d) launch/train.py on the reduced config: a checkpoint saved on
+    --data-par 4 --model-par 2 and one saved on one device (main, in this
+    process), each resumed on 2 x 2 by a process of its own (the two at a
+    time)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.launch import train
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    base = ["--arch", "qwen3-0.6b", "--smoke", "--global-batch", "4", "--seq-len", "32",
+            "--log-every", "1"]
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = [os.path.join(tmp, "from_4x2"), os.path.join(tmp, "from_1x1")]
+        t0 = time.perf_counter()
+        for d, mesh in zip(dirs, (["--data-par", "4", "--model-par", "2"], [])):
+            with contextlib.redirect_stdout(io.StringIO()):
+                assert train.main(base + ["--steps", "4", "--ckpt-dir", d, "--ckpt-every", "4"]
+                                  + mesh) == 0
+        saved_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train", *base,
+                                   "--steps", "6", "--data-par", "2", "--model-par", "2",
+                                   "--ckpt-dir", d, "--resume", "auto"],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                  env=env, cwd=root) for d in dirs]
+        outs = []
+        try:
+            for p in procs:
+                out, errs = p.communicate(timeout=300)
+                assert p.returncode == 0, (out[-2000:], errs[-4000:])
+                outs.append(out)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        for label, out in zip(("4 x 2", "1 x 1"), outs):
+            assert "resumed from step 4" in out, out
+            rec = json.loads(out.strip().splitlines()[-1])
+            assert rec["steps"] == 6 and rec["failures"] == 0 and np.isfinite(rec["final_loss"])
+            print(f"phase 17 (d) launch/train.py on {smi}: saved on {label} (main, 4 steps), "
+                  f"resumed on 2 x 2 by python -m repro_torch.launch.train: resumed from step 4, "
+                  f"{out.strip().splitlines()[-1]}")
+        print(f"phase 17 (d) the two saves {saved_s:.1f} s, the two resuming processes (at a "
+              f"time) {time.perf_counter() - t0:.1f} s")
+
+
+def phase17(smi, name, root, dev, reset_counts, counters, lm_tokens):
+    """Training and serving over a mesh of the one card: (a) the sharded
+    step against one device, (b) the compressed trainer, (c) Server over a
+    mesh, (d) the trainer's elastic restore.  Returns (flash_attn bf16
+    launches, wkv launches) of (c)."""
+    t_phase = time.perf_counter()
+    used, p_used = phase17_sharded(smi, dev)
+    phase17_compressed(smi, dev)
+    launches = phase17_serve(smi, dev, reset_counts, counters, lm_tokens)
+    phase17_trainer(smi, root)
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s; (a) tol used {used:.3f} (metrics), "
+          f"{p_used:.3f} (parameters)")
+    return launches["a"], launches["c"]
 
 
 def main():
@@ -4067,8 +4386,8 @@ def main():
 
     # phase 14: the LM serving path at full width (counts from 0 around each
     # main-path run)
-    lm_launches, lm_errs = phase14(smi, name, root, torch.device("cuda", 0), reset_counts,
-                                   counters)
+    lm_launches, lm_errs, lm_tokens = phase14(smi, name, root, torch.device("cuda", 0),
+                                              reset_counts, counters)
     flash_line["max_abs_err"] = max(flash_line["max_abs_err"], lm_errs[torch.float32])
     flash_bf16_line["max_abs_err"] = max(flash_bf16_line["max_abs_err"], lm_errs[torch.bfloat16])
 
@@ -4083,6 +4402,11 @@ def main():
     # serving runs count from 0 around each)
     train_flash, train_wkv = phase16(smi, name, root, torch.device("cuda", 0), reset_counts,
                                      counters)
+
+    # phase 17: training and serving over a mesh of the one card (counts
+    # from 0 around each of (c)'s serving runs)
+    mesh_flash, mesh_wkv = phase17(smi, name, root, torch.device("cuda", 0), reset_counts,
+                                   counters, lm_tokens)
 
     print(json.dumps({"kernels": [
         {
@@ -4142,8 +4466,8 @@ def main():
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
             "replaces": "src/repro/kernels/flash_attn/kernel.py:36",
-            "launches": flash_bf16_launches + lm_launches["flash_bf16"]   # phases 7, 14, 15
-            + fam_launches["flash_bf16"],
+            "launches": flash_bf16_launches + lm_launches["flash_bf16"]   # phases 7, 14, 15, 17
+            + fam_launches["flash_bf16"] + mesh_flash,
             **{key: flash_bf16_line[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                      "bound_by", "library_ms")},
         },
@@ -4152,8 +4476,8 @@ def main():
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/wkv.cu",
             "replaces": "src/repro/kernels/wkv/kernel.py:37",
-            **dict(wkv_line, launches=wkv_line["launches"] + lm_launches["wkv"]   # phases 8, 14, 16
-                   + train_wkv,
+            **dict(wkv_line, launches=wkv_line["launches"] + lm_launches["wkv"]   # phases 8, 14, 16, 17
+                   + train_wkv + mesh_wkv,
                    max_abs_err=max(wkv_line["max_abs_err"], lm_errs["wkv"])),
             # library_ms null: no single PyTorch call computes WKV
         },

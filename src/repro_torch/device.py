@@ -14,6 +14,15 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def canonical(device) -> torch.device:
+    """``device`` with its index: a bare ``"cuda"`` is the current CUDA
+    device, so that two names of one card compare equal."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def to_device(x: torch.Tensor, device) -> torch.Tensor:
     """``x`` on ``device`` (no copy where it already lies there).  A copy to
     a CUDA device does not make the host wait; a copy to the host does, as

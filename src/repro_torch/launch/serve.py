@@ -10,6 +10,14 @@ caller names another device: on CUDA every attention (self, local, cross,
 encoder) runs the flash attention kernel and rwkv6's chunked time mix the
 WKV kernel.
 
+Over a mesh of more than one position the slots split over the DP
+positions in contiguous blocks, as ``batch_spec`` splits the batch axis:
+slot ``s``'s cache lives on its data row's device (where ``cache_spec``
+puts a serving cache's batch axis), and the row serves from a copy of the
+model gathered once at construction (a device that already holds it takes
+no second one).  A slot runs the same shapes and code as on one device,
+so its tokens are the one-device server's.
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
       --requests 8 --batch 4 --max-new 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b
@@ -29,9 +37,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import get_config
-from repro_torch.device import resolve_device
+from repro_torch.device import canonical, resolve_device
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.launch.steps import make_decode_step, make_prefill_step, mesh_device
+from repro_torch.launch.placement import positions_along, replicate
+from repro_torch.launch.sharding import batch_spec
+from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import model as M
 
 
@@ -46,13 +56,27 @@ class Request:
     t_finish: Optional[float] = None
 
 
+def slot_devices(mesh, batch: int) -> List[torch.device]:
+    """Each slot's device: the slots split over the positions that
+    ``batch_spec`` gives a batch axis of ``batch`` rows, in contiguous
+    blocks (all on position 0 where the spec leaves the axis whole)."""
+    entry = batch_spec((batch,), mesh)[0]
+    names = () if entry is None else ((entry,) if isinstance(entry, str) else tuple(entry))
+    flat = mesh.devices.reshape(-1)
+    rows = [canonical(flat[p]) for p in positions_along(mesh, names)]
+    per = batch // len(rows)
+    return [rows[s // per] for s in range(batch)]
+
+
 class Server:
     """Slot-based continuous batching over a fixed decode batch.
 
     The model is built on ``device`` (CUDA unless named; a given ``mesh``
-    names it instead, and must hold one device) from
+    names it instead: its first position's) from
     ``torch.Generator(device).manual_seed(seed)``, unless ``params`` (a
-    model, e.g. from ``models/convert.py``) is given."""
+    model, e.g. from ``models/convert.py``, on that device) is given.  Over
+    a larger mesh each slot serves on its data row's device (the module
+    doc)."""
 
     def __init__(self, cfg, batch: int, max_seq: int, mesh=None, seed: int = 0,
                  device=None, params: Optional[M.LM] = None):
@@ -60,32 +84,39 @@ class Server:
         self.batch = batch
         self.max_seq = max_seq
         if mesh is None:
-            self.device = resolve_device(device)
+            self.device = canonical(resolve_device(device))
             mesh = make_host_mesh(1, 1, devices=[self.device])
         else:
-            self.device = resolve_device(mesh_device(mesh))
+            self.device = canonical(resolve_device(mesh.devices.reshape(-1)[0]))
         self.mesh = mesh
         if params is None:
             params = M.init_params(torch.Generator(self.device).manual_seed(seed), cfg)
-        elif params.device != self.device:
+        elif canonical(params.device) != self.device:
             raise ValueError(f"params are on {params.device}, the server on {self.device}")
         self.params = params
+        self.slot_device = slot_devices(mesh, batch)
+        # one copy of the model a row device, gathered once
+        self.row_params = {self.device: params}
+        for dev in self.slot_device:
+            if dev not in self.row_params:
+                self.row_params[dev] = replicate(params, dev)
         self.prefill = make_prefill_step(cfg, self.mesh)
         self.decode = make_decode_step(cfg, self.mesh)
         # one cache per slot (batch=1) so prefill shapes are slot-local
         self.slot_cache = [
-            M.make_serve_cache(cfg, 1, max_seq, device=self.device) for _ in range(batch)
+            M.make_serve_cache(cfg, 1, max_seq, device=dev) for dev in self.slot_device
         ]
         self.slot_req: List[Optional[Request]] = [None] * batch
         self.slot_pos = np.zeros(batch, np.int32)
         self.slot_tok = np.zeros((batch, 1), np.int32)
         self.finished: List[Request] = []
 
-    def _on_device(self):
-        """The server's card as the current device: ``step`` may run on a
+    def _on_device(self, device=None):
+        """The slot's card as the current device: ``step`` may run on a
         watchdog thread (``runtime/fault.py::with_timeout``)."""
-        if self.device.type == "cuda":
-            return torch.cuda.device(self.device)
+        device = device or self.device
+        if device.type == "cuda":
+            return torch.cuda.device(device)
         return contextlib.nullcontext()
 
     def _stub_batch(self, tokens):
@@ -94,19 +125,20 @@ class Server:
         batch = {"tokens": tokens}
         if self.cfg.family == "audio":
             batch["frames"] = torch.zeros((tokens.shape[0], self.cfg.encoder_seq,
-                                           self.cfg.d_model), device=self.device)
+                                           self.cfg.d_model), device=tokens.device)
         if self.cfg.family == "vlm":
             batch["patches"] = torch.zeros((tokens.shape[0], self.cfg.num_patches,
-                                            self.cfg.d_model), device=self.device)
+                                            self.cfg.d_model), device=tokens.device)
         return batch
 
     def admit(self, req: Request) -> bool:
         for s in range(self.batch):
             if self.slot_req[s] is None:
                 req.t_admit = time.monotonic()
-                prompt = torch.as_tensor(req.prompt[None, :].astype(np.int32), device=self.device)
-                with self._on_device():
-                    logits, cache = self.prefill(self.params, self._stub_batch(prompt),
+                dev = self.slot_device[s]
+                prompt = torch.as_tensor(req.prompt[None, :].astype(np.int32), device=dev)
+                with self._on_device(dev):
+                    logits, cache = self.prefill(self.row_params[dev], self._stub_batch(prompt),
                                                  self.slot_cache[s])
                     nxt = int(torch.argmax(logits[0, -1]))
                 self.slot_cache[s] = cache
@@ -148,10 +180,11 @@ class Server:
             req = self.slot_req[s]
             if req is None:
                 continue
-            with self._on_device():
+            dev = self.slot_device[s]
+            with self._on_device(dev):
                 logits, cache = self.decode(
-                    self.params,
-                    torch.as_tensor(self.slot_tok[s : s + 1], device=self.device),
+                    self.row_params[dev],
+                    torch.as_tensor(self.slot_tok[s : s + 1], device=dev),
                     self.slot_cache[s],
                     int(self.slot_pos[s]),
                 )

@@ -1,16 +1,20 @@
 """End-to-end trainer: data pipeline -> train step -> checkpoints, under
 the fault-tolerance supervisor (the JAX package's ``launch/train.py``).
 
-Runs on one device, the card unless ``--device`` names another; a mesh
-of more than one device (``--data-par``/``--model-par`` above 1) raises
-until the parameter and optimizer shardings are ported (ROADMAP item
-11f-b).  The checkpoint holds ``{"params": {name: f32}, "opt": {"m",
-"v", "step"}}``; ``--resume auto`` restarts from the newest one, and the
-token stream restarts at its step.
+Runs on the card unless ``--device`` names another.  ``--data-par`` and
+``--model-par`` build a ``(data, model)`` mesh of that many positions, all
+on the one device (``[dev] * n``, the counterpart of the reference's
+forced host devices); above one position the state lives as blocks on the
+mesh (``launch/placement.py``) and the mesh train step runs
+(``launch/steps.py``).  The checkpoint is mesh-free: ``{"params": {name:
+f32}, "opt": {"m", "v", "step"}}``, gathered on save and placed by name on
+restore, so ``--resume auto`` restarts from the newest one on any mesh
+shape; the token stream restarts at its step.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b --smoke \
       --steps 20 --ckpt-dir /tmp/ckpt --resume auto
-  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b --smoke --device cpu \
+      --data-par 2 --model-par 2
 """
 from __future__ import annotations
 
@@ -24,17 +28,26 @@ import torch
 from repro_torch.checkpoint.ckpt import CheckpointManager, latest_step, restore
 from repro_torch.configs.base import get_config
 from repro_torch.data.pipeline import TokenPipeline
-from repro_torch.device import resolve_device
+from repro_torch.device import canonical, resolve_device
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.launch.steps import StepOptions, init_train_state, make_train_step, mesh_device
+from repro_torch.launch.placement import (
+    MeshParams,
+    gather_train_state,
+    place_train_state,
+    restore_train_state,
+)
+from repro_torch.launch.steps import StepOptions, init_train_state, make_train_step, mesh_size
 from repro_torch.runtime.fault import RetryPolicy, Supervisor, guard_finite
 
 
 def build(cfg, mesh, opts: StepOptions, total_steps: int):
-    """(params, opt, step, device): the train state on ``mesh``'s one device
-    and its train step."""
-    dev = resolve_device(mesh_device(mesh))
+    """(params, opt, step, device): the train state on ``mesh`` (placed as
+    blocks if it has more than one position) and its train step; ``device``
+    is position 0's, where the batches and the metrics live."""
+    dev = canonical(resolve_device(mesh.devices.reshape(-1)[0]))
     params, opt = init_train_state(cfg, device=dev)
+    if mesh_size(mesh) > 1:
+        params, opt = place_train_state(params, opt, mesh, opts.sharding_mode)
     step = make_train_step(cfg, mesh, opts, total_steps=total_steps)
     return params, opt, step, dev
 
@@ -50,13 +63,26 @@ def add_stub_inputs(batch, cfg, rng):
 
 
 def checkpoint_tree(params, opt):
-    """What a checkpoint holds: the parameters by name and the AdamW state."""
+    """What a checkpoint holds: the parameters by name and the AdamW state,
+    whole (gathered from the blocks on a mesh)."""
+    if isinstance(params, MeshParams):
+        whole, whole_opt = gather_train_state(params, opt)
+        return {"params": whole, "opt": whole_opt}
     return {"params": dict(params.named_parameters()), "opt": opt}
 
 
 def load_checkpoint(directory, step, params, opt, device):
     """Restore checkpoint ``step`` into ``params`` (in place) and return the
-    restored optimizer state, on ``device``."""
+    restored optimizer state, on ``device`` (on a mesh: into the blocks)."""
+    if isinstance(params, MeshParams):
+        shapes = {n: torch.empty(s, device="meta") for n, s in params.shapes.items()}
+        like = {"params": shapes, "opt": {"m": shapes, "v": shapes,
+                                          "step": torch.empty((), dtype=torch.int32,
+                                                              device="meta")}}
+        restored, _ = restore(directory, step, like,
+                              place_fn=lambda path, v: torch.from_numpy(v))
+        restore_train_state(params, opt, restored["params"], restored["opt"])
+        return opt
     restored, _ = restore(directory, step, checkpoint_tree(params, opt),
                           place_fn=lambda path, v: torch.from_numpy(v).to(device))
     with torch.no_grad():
@@ -89,7 +115,7 @@ def main(argv=None):
     if args.smoke:
         cfg = cfg.reduced()
     dev = resolve_device(args.device)
-    # a mesh of the one device: a larger one raises in build (mesh_device)
+    # every position of the mesh on the one device
     mesh = make_host_mesh(args.data_par, args.model_par,
                           devices=[dev] * (args.data_par * args.model_par))
     opts = StepOptions(ce_chunk=min(args.ce_chunk, args.seq_len))

@@ -57,18 +57,25 @@ def _jax_path(name: str) -> Tuple[str, Tuple[int, ...]]:
     return "/".join(path), tuple(index)
 
 
+def stacked_leaves(named) -> Dict[str, Tuple[int, ...]]:
+    """{JAX path: the stacked leaf's shape} of a mapping of port names to
+    tensors: each stacked axis one past the largest index the names give
+    it."""
+    want: Dict[str, Tuple[int, ...]] = {}
+    for name, p in named.items():
+        path, index = _jax_path(name)
+        lead = want.get(path, (0,) * len(index))[:len(index)]
+        want[path] = tuple(max(n, i + 1) for n, i in zip(lead, index)) + tuple(p.shape)
+    return want
+
+
 def params_from_jax(tree: Dict, cfg, device=None, kernels: bool = True,
                     master: bool = False) -> LM:
     """The port's model on ``device`` (CUDA unless named) holding ``tree``'s
     weights; ``master`` keeps them in f32, to train (``LM``)."""
     model = LM(cfg, device=resolve_device(device), kernels=kernels, master=master)
     params = dict(model.named_parameters())
-    want: Dict[str, Tuple[int, ...]] = {}
-    for name, p in params.items():
-        path, index = _jax_path(name)
-        # the stacked axes' lengths: one past the largest index seen on each
-        lead = want.get(path, (0,) * len(index))[:len(index)]
-        want[path] = tuple(max(n, i + 1) for n, i in zip(lead, index)) + tuple(p.shape)
+    want = stacked_leaves(params)
     got = {path: np.asarray(leaf) for path, leaf in _flatten(tree)}
     missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
     if missing:

@@ -17,10 +17,18 @@ into groups of at most ``moe_group_size`` (the largest divisor of the
 token count that fits); a token past its expert's capacity C is dropped,
 in token order.  A decode step (one token) has C = 1 and runs the expert
 products over all E experts, as the reference does.
+
+The load-balance loss of a layer is ``E·K·Σ_e frac_tokens_e·frac_probs_e``
+over all its tokens.  A step that splits a batch over devices
+(``launch/steps.py``) needs the two means apart to form the whole batch's
+product: inside :func:`record_balance` every ``moe_ffn`` call appends its
+``(frac_tokens, frac_probs)`` (the first detached: it comes from the top-k
+assignment and carries no gradient, as in the reference).
 """
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +52,21 @@ class MoE(nn.Module):
         self.w_gate = dense_init(generator, (e, d, ff), dtype=dt, device=device)
         self.w_up = dense_init(generator, (e, d, ff), dtype=dt, device=device)
         self.w_down = dense_init(generator, (e, ff, d), dtype=dt, device=device)
+
+
+_BALANCE: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None
+
+
+@contextlib.contextmanager
+def record_balance():
+    """Collect each ``moe_ffn`` call's (frac_tokens, frac_probs), in call
+    order (one entry a MoE layer of a forward), into the yielded list."""
+    global _BALANCE
+    prev, _BALANCE = _BALANCE, []
+    try:
+        yield _BALANCE
+    finally:
+        _BALANCE = prev
 
 
 def moe_init(generator, cfg, device=None) -> MoE:
@@ -114,6 +137,8 @@ def moe_ffn(p, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     # load-balance auxiliary loss (Switch): E * Σ_e f_e · P_e
     frac_tokens = assign.mean(dim=(0, 1)) / k              # (E,)
     frac_probs = probs.mean(dim=(0, 1))
+    if _BALANCE is not None:
+        _BALANCE.append((frac_tokens.detach(), frac_probs))
     aux = e * torch.sum(frac_tokens * frac_probs) * k
 
     return y.reshape(b, s, d), aux

@@ -3,9 +3,11 @@
 
 Model code stays mesh-agnostic; a launcher may install a constraint
 function for the duration of a call.  ``constrain`` is called by the
-layer stacks on the residual carry; with no context installed it is the
-identity, which is all one card needs (activation sharding comes with the
-port's training and sharding slice: ROADMAP item 11).
+layer stacks on the residual carry, ``constrain_named`` on the MoE
+dispatch path; with no context installed both are the identity.  Over a
+mesh the launchers install ``launch/sharding.py``'s constraints, which
+carry the reference's spec for each tensor and check that it lies on its
+batch slice's device, leaving its values alone.
 """
 from __future__ import annotations
 

@@ -65,6 +65,33 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
 
 
+def adamw_scalars(step: torch.Tensor, cfg: AdamWConfig, lr_scale=1.0):
+    """(the next step, the bias corrections 1 - b1^t and 1 - b2^t, the
+    learning rate), f32 tensors on ``step``'s device."""
+    f32 = torch.float32
+    step = step + 1
+    t = step.to(f32)
+    b1t = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=f32, device=t.device), t)
+    b2t = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=f32, device=t.device), t)
+    lr = cfg.lr * torch.as_tensor(lr_scale, dtype=f32, device=t.device)
+    return step, b1t, b2t, lr
+
+
+def adamw_leaf_update(p, g, m, v, clip, b1t, b2t, lr, cfg: AdamWConfig, decay: bool) -> None:
+    """One leaf's (or one block of it) AdamW update, in place."""
+    g = g.float() * clip
+    m.mul_(cfg.b1).add_((1.0 - cfg.b1) * g)
+    v.mul_(cfg.b2).add_((1.0 - cfg.b2) * torch.square(g))
+    upd = (m / b1t) / (torch.sqrt(v / b2t) + cfg.eps)
+    if decay:
+        upd = upd + cfg.weight_decay * p.float()
+    p.copy_(p.float() - lr * upd)
+
+
+def clip_scale(gnorm: torch.Tensor, cfg: AdamWConfig) -> torch.Tensor:
+    return torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
+
+
 def adamw_update(
     params,
     grads: Mapping[str, torch.Tensor],
@@ -74,24 +101,12 @@ def adamw_update(
 ) -> Tuple[object, Dict, Dict[str, torch.Tensor]]:
     """One AdamW step, in place. Returns (params, state, metrics)."""
     leaves = named(params)
-    step = state["step"] + 1
     gnorm = global_norm([grads[n] for n in leaves])
-    clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
-
-    f32 = torch.float32
-    t = step.to(f32)
-    b1t = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=f32, device=t.device), t)
-    b2t = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=f32, device=t.device), t)
-    lr = cfg.lr * torch.as_tensor(lr_scale, dtype=f32, device=t.device)
-
+    clip = clip_scale(gnorm, cfg)
+    step, b1t, b2t, lr = adamw_scalars(state["step"], cfg, lr_scale)
     with torch.no_grad():
         for n, p in leaves.items():
-            g = grads[n].float() * clip
-            m = state["m"][n].mul_(cfg.b1).add_((1.0 - cfg.b1) * g)
-            v = state["v"][n].mul_(cfg.b2).add_((1.0 - cfg.b2) * torch.square(g))
-            upd = (m / b1t) / (torch.sqrt(v / b2t) + cfg.eps)
-            if decays(n, p):
-                upd = upd + cfg.weight_decay * p.float()
-            p.copy_(p.float() - lr * upd)
+            adamw_leaf_update(p, grads[n], state["m"][n], state["v"][n], clip, b1t, b2t, lr, cfg,
+                              decays(n, p))
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -198,10 +198,15 @@ def train_run(cfg, weights, device, batches, opts):
     return model, metrics
 
 
+def _named(model) -> dict:
+    return dict(model.named_parameters()) if hasattr(model, "named_parameters") else dict(model)
+
+
 def train_close(got_model, got_metrics, want_model, want_metrics) -> dict:
     """Raise AssertionError unless a train run matches another (metrics and
     parameters, ``train_close``'s tolerances); return the largest share of
-    each tolerance used: {"metrics": x, "params": y}."""
+    each tolerance used: {"metrics": x, "params": y}.  A model is an ``LM``
+    or a mapping of its parameters' names to tensors."""
     used = {"metrics": 0.0, "params": 0.0}
     for i, (g, w) in enumerate(zip(got_metrics, want_metrics, strict=True)):
         for key in TRAIN_METRICS:
@@ -210,8 +215,8 @@ def train_close(got_model, got_metrics, want_model, want_metrics) -> dict:
             assert share <= 1.0, (f"step {i} {key}", g[key], w[key])
             used["metrics"] = max(used["metrics"], share)
     bound = sum(m["lr"] for m in want_metrics)
-    want = dict(want_model.named_parameters())
-    for name, p in got_model.named_parameters():
+    want = _named(want_model)
+    for name, p in _named(got_model).items():
         err = float((p.detach().cpu() - want[name].detach().cpu()).abs().max())
         assert err <= bound, (name, err, bound)
         used["params"] = max(used["params"], err / bound)

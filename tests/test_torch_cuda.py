@@ -19,7 +19,9 @@ time mix in wkv; vlm and audio on random patches and frames with the
 cross gates at 0.5) against its CPU path with exact launch counts,
 recurrentgemma's decode across the wrap of its rolling cache, the decode's
 key cut, a kernel refusal raising through the model, the Server of every
-family in bf16.
+family in bf16; training on the card; and training and serving over
+meshes that repeat the card (the mesh step against its CPU run, psum_int8
+bit for bit, the Server over a (2, 1) mesh).
 Every test here needs a CUDA device and skips without one.  The file imports neither jax
 nor repro, so it runs on a machine with the card alone:
 
@@ -1651,3 +1653,92 @@ def test_lm_decode_past_the_caches_end_on_card(cuda, arch):
     for g, w in zip(got, want):
         close_within(g, w, *FLASH_TOL[torch.float32])
         assert torch.equal(g.argmax(-1), w.argmax(-1))
+
+
+# ---------------------------------------------------------------------------
+# training and serving over a mesh whose positions repeat the card: the
+# mesh train step against its CPU run, psum_int8 on the card bit for bit
+# its CPU result, the Server over a (2, 1) mesh against the one-card Server
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "olmoe-1b-7b"])
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1)])
+def test_mesh_train_step_on_card_matches_cpu(cuda, arch, shape):
+    """3 steps of the reduced model (f32, TF32 off; qwen3 widened so that
+    its leaves shard) on a mesh of the card and on the same mesh of CPU
+    entries, from the same weights: train_close; every block on the card."""
+    import dataclasses
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.placement import gather_train_state, place_train_state
+    from repro_torch.launch.steps import StepOptions, init_train_state, make_train_step
+    from repro_torch.testing import train_batches, train_close
+
+    cfg = _lm_cfg(arch)
+    if arch == "qwen3-0.6b":
+        cfg = dataclasses.replace(cfg, d_model=256, d_ff=512, vocab_size=512)
+    batches = train_batches(cfg, 3, 4, 16)
+    runs = []
+    for dev in ("cpu", cuda):
+        model, opt = init_train_state(cfg, torch.Generator().manual_seed(5), device="cpu")
+        model = model.to(dev)
+        opt = {"m": {k: v.to(dev) for k, v in opt["m"].items()},
+               "v": {k: v.to(dev) for k, v in opt["v"].items()}, "step": opt["step"].to(dev)}
+        mesh = make_host_mesh(*shape, devices=[dev] * (shape[0] * shape[1]))
+        params, opt = place_train_state(model, opt, mesh)
+        step = make_train_step(cfg, mesh, StepOptions(ce_chunk=8))
+        metrics = []
+        for b in batches:
+            params, opt, m = step(params, opt, {k: torch.as_tensor(v).to(dev) for k, v in b.items()})
+            metrics.append({k: float(v) for k, v in m.items()})
+        assert all(blk is None or blk.device.type == torch.device(dev).type
+                   for bl in params.blocks.values() for blk in bl)
+        runs.append((gather_train_state(params, opt)[0], metrics))
+    train_close(*runs[1], *runs[0])
+
+
+def test_psum_int8_on_card_is_the_cpu_result_bit_for_bit(cuda):
+    from repro_torch.optim.compress import psum_int8
+
+    rng = np.random.default_rng(3)
+    grads = [{"a": rng.standard_normal((64, 33)).astype(np.float32) * s,
+              "b": rng.choice([0.5, 1.5, -2.5, 127.0], size=(40,)).astype(np.float32)}
+             for s in (1.0, 0.01, 3.0)]
+    want_err = got_err = None
+    for _ in range(3):
+        want, want_err = psum_int8([{k: torch.from_numpy(v) for k, v in g.items()} for g in grads],
+                                   want_err)
+        got, got_err = psum_int8([{k: torch.from_numpy(v).to(cuda) for k, v in g.items()}
+                                  for g in grads], got_err)
+        for i in range(3):
+            for k in ("a", "b"):
+                assert torch.equal(got[i][k].cpu(), want[i][k]), (i, k)
+                assert torch.equal(got_err[i][k].cpu(), want_err[i][k]), (i, k)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-3b"])
+def test_mesh_server_on_card_gives_the_one_card_servers_tokens(cuda, arch):
+    """The reduced model in bf16 over a (2, 1) mesh of the card: the one
+    card Server's tokens, the same kernel launches, one copy of the model."""
+    import dataclasses
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import Request, Server
+
+    cfg = dataclasses.replace(_lm_cfg(arch), dtype="bfloat16")
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (24, 7, 16, 31, 12)]
+    outs, counts = [], []
+    for mesh in (None, make_host_mesh(2, 1, devices=[cuda] * 2)):
+        srv = Server(cfg, 4, 64, mesh=mesh, device=None if mesh is not None else cuda, seed=2)
+        reqs = [Request(i, p, 6) for i, p in enumerate(prompts)]
+        before = (flash_attention_cuda.launches, wkv_cuda.launches)
+        pending = list(reqs)
+        while pending or srv.occupancy():
+            while pending and srv.admit(pending[0]):
+                pending.pop(0)
+            srv.step()
+        counts.append((flash_attention_cuda.launches - before[0], wkv_cuda.launches - before[1]))
+        outs.append([r.out for r in reqs])
+        assert len(srv.row_params) == 1
+    assert outs[0] == outs[1] and counts[0] == counts[1] and sum(counts[0]) > 0

@@ -128,17 +128,33 @@ def test_server_keeps_the_references_surface():
 
 
 def test_a_larger_mesh_raises_and_so_do_foreign_params():
+    """A mesh of more than one position now serves and trains; what still
+    raises: params on another device than the server's, a mesh train step
+    given a model that is not placed on it, and an MoE batch whose groups
+    would straddle the mesh's batch slices."""
+    from repro_torch.launch.placement import place_train_state
+    from repro_torch.launch.steps import StepOptions, init_train_state
+
     cfg = _cfg()
     mesh = make_host_mesh(2, 1, devices="cpu")
     for build in (make_prefill_step, make_decode_step, make_train_step):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11f-b"):
-            build(cfg, mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11f-b"):
-        Server(cfg, batch=1, max_seq=16, mesh=mesh)
+        assert callable(build(cfg, mesh))
+    srv = Server(cfg, batch=2, max_seq=16, mesh=mesh)
+    assert srv.device == torch.device("cpu") and srv.mesh is mesh
+    assert [c["kv"]["k"].device for c in srv.slot_cache] == [torch.device("cpu")] * 2
     srv = Server(cfg, batch=1, max_seq=16, mesh=make_host_mesh(1, 1, devices="cpu"))
     assert srv.device == torch.device("cpu")
     with pytest.raises(ValueError, match="params are on"):
         Server(cfg, batch=1, max_seq=16, device="cpu", params=M.LM(cfg, device="meta"))
+    params, opt = init_train_state(cfg, device="cpu")
+    with pytest.raises(TypeError, match="place_train_state"):
+        make_train_step(cfg, mesh)(params, opt, {"tokens": np.zeros((2, 8), np.int32),
+                                                 "labels": np.zeros((2, 8), np.int32)})
+    moe = _cfg("olmoe-1b-7b")
+    params, opt = place_train_state(*init_train_state(moe, device="cpu"), mesh)
+    batch = {"tokens": np.zeros((2, 6), np.int32), "labels": np.zeros((2, 6), np.int32)}
+    with pytest.raises(ValueError, match="straddle"):     # groups of 12, slices of 6
+        make_train_step(moe, mesh, StepOptions(ce_chunk=6))(params, opt, batch)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """The port's trainer (src/repro_torch/launch/train.py) on the CPU:
 tests/test_distributed.py's failure injection and resume as processes of
 their own (``--device cpu``), a resumed run's losses equal to an
-uninterrupted run's, the refusal of a mesh of more than one device, and
-the last JSON line's keys against the JAX trainer's."""
+uninterrupted run's, a mesh of more than one position (and its refusal of
+an MoE batch whose groups straddle the slices), and the last JSON line's
+keys against the JAX trainer's."""
 import contextlib
 import io
 import json
@@ -91,9 +92,23 @@ def test_a_resumed_run_logs_the_uninterrupted_runs_losses(tmp_path):
 
 
 def test_a_mesh_of_more_than_one_device_raises():
-    for flags in (["--data-par", "2"], ["--model-par", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11f-b"):
-            train.main(SMOKE + ["--steps", "1", "--device", "cpu"] + flags)
+    """A mesh of more than one position trains (the state as blocks on it,
+    the losses the one-device run's); it raises where the batch cannot
+    split as the reference's whole batch: an MoE batch whose groups would
+    straddle two slices."""
+    base = SMOKE + ["--steps", "2", "--device", "cpu", "--log-every", "1"]
+    want = _losses(_main(train.main, base))
+    for flags in (["--data-par", "2"], ["--model-par", "2"], ["--data-par", "2", "--model-par",
+                                                              "2"]):
+        got = _losses(_main(train.main, base + flags))
+        assert sorted(got) == [0, 1]
+        assert all(abs(got[i] - want[i]) <= 1.5e-4 for i in got), (flags, got, want)
+    with pytest.raises(RuntimeError, match="retries exhausted") as raised:
+        _main(train.main, ["--arch", "olmoe-1b-7b", "--smoke", "--global-batch", "4",
+                           "--seq-len", "6", "--steps", "1", "--device", "cpu", "--data-par", "4"])
+    cause = raised.value.__cause__     # the supervisor retried, then gave up
+    assert isinstance(cause, ValueError) and "MoE groups of 12 tokens" in str(cause)
+    assert "straddle" in str(cause)
 
 
 def test_the_last_line_has_the_jax_trainers_keys():
