@@ -268,7 +268,25 @@ and training and serving over a mesh whose positions all sit on the card:
            phase 14's tokens, with 7,168 flash_attn and 128 wkv launches
            (asserted); (d) launch/train.py: checkpoints saved on --data-par
            4 --model-par 2 and on one device, each resumed on 2 x 2 by a
-           process of its own ("resumed from step 4").
+           process of its own ("resumed from step 4");
+
+and the dry run (launch/dryrun.py), its plans held to runs on the card:
+
+  phase 18 (a) the 40 (arch x shape) cells at full width on the 16 x 16
+           mesh of meta entries, in this process: a line a cell (the
+           largest position's argument, temp-estimate and gathered-model
+           bytes, whether it fits this card, FLOPs a position, bytes
+           gathered and reduced a step), the skips cell_supported's, no
+           cell failing (past DRY_BUDGET_S the remaining train_4k cells are
+           cut and named); (b) qwen3-0.6b 8 x 1,024 traced for (1, 1) and
+           (2, 2), then one real step each through launch/train.py::build
+           on the card: state bytes, gathered/reduced (step.stats) and the
+           step's FLOPs (launch/op_analysis.py over the real step) equal the
+           prediction exactly, peak live bytes beside the card's peak; (c)
+           qwen3-0.6b's prefill of 1,024 tokens and a decode at the full
+           cache, rwkv6-3b's prefill of 1,024, with the kernels: the
+           predicted flash_attn and wkv launches equal the wrappers'
+           counters, the kernel and ATen FLOPs the real calls'.
 
 Every flash_attn and wkv comparison goes through repro_torch.testing
 (flash_close, wkv_close: one tolerance table with the card tests) and
@@ -635,14 +653,6 @@ def flash_qkv(dev, b, s, h, kvh, hd, seed):
             for shape in ((b, s, h, hd), (b, s, kvh, hd), (b, s, kvh, hd))]
 
 
-def visible_pairs(sq, skv, causal, window):
-    """(query, key) pairs the mask lets through, for one head."""
-    q = torch.arange(sq, dtype=torch.int64)
-    hi = torch.minimum(q + 1, torch.tensor(skv)) if causal else torch.full_like(q, skv)
-    lo = (q - window + 1).clamp(min=0) if window > 0 else torch.zeros_like(q)
-    return int((hi - lo).clamp(min=0).sum())
-
-
 def phase7_edge_cases(dev):
     """flash_attention_cuda against flash_attention_plain at small shapes;
     the worst (|Δ|, share of the tolerance used) in f32 and in bf16."""
@@ -763,7 +773,7 @@ def phase7_full_width(dev, name, model, dtype):
     design's check and time in turns beside the kernel.  The check's
     readings for planted faults too: one TF32 product in f32, three faults
     in bf16."""
-    from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda, visible_pairs
     from repro_torch.kernels.flash_attn.ops import heads_first
     from repro_torch.kernels.flash_attn.ref import flash_attention_plain
     from repro_torch.kernels.legacy import flash_attn_v1
@@ -965,12 +975,6 @@ def device_ms(fn, reps, part):
     return out
 
 
-def wkv_flops(bh, t, kk, chunk):
-    """Per chunk and head: the strictly causal scores and their product
-    with v (C(C-1)/2 pairs each), the state apply and the state update (C·K²)."""
-    return bh * -(-t // chunk) * (2.0 * kk * chunk * (chunk - 1) + 4.0 * chunk * kk * kk)
-
-
 def phase8_full_width(dev, name, usage, reset_counts, counters):
     """The kernels against their plain version and their first design at
     rwkv6-3b's width, with timings (the first design in turns), launch
@@ -978,7 +982,7 @@ def phase8_full_width(dev, name, usage, reset_counts, counters):
     the model calls it, f32 and bf16, against the model's _chunked_wkv
     (f32) and the plain version (bf16)."""
     from repro_torch.kernels.legacy import wkv_v1
-    from repro_torch.kernels.wkv.kernel import launch_shapes, wkv_cuda
+    from repro_torch.kernels.wkv.kernel import launch_shapes, wkv_cuda, wkv_flops
     from repro_torch.kernels.wkv.ops import wkv
     from repro_torch.kernels.wkv.ref import wkv_plain
     from repro_torch.models.rwkv6 import _chunked_wkv
@@ -3166,10 +3170,10 @@ def phase14_kernels(dev, name):
     """The wrappers at the shapes the main path gives them (qwen3-0.6b's
     prefill and one decode step at position 1,055; rwkv6-3b's prefill),
     against their plain versions, timed beside SDPA."""
-    from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda, visible_pairs
     from repro_torch.kernels.flash_attn.ops import heads_first
     from repro_torch.kernels.flash_attn.ref import flash_attention_plain
-    from repro_torch.kernels.wkv.kernel import wkv_cuda
+    from repro_torch.kernels.wkv.kernel import wkv_cuda, wkv_flops
     from repro_torch.kernels.wkv.ref import wkv_plain
     from repro_torch.testing import flash_close, wkv_close
 
@@ -3373,7 +3377,7 @@ LM15_FLASH = (
 def phase15_kernels(dev, name):
     """flash_attention_cuda at phase 15's shapes against its plain version,
     timed beside SDPA and its bound; {dtype: worst |d|}."""
-    from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda, visible_pairs
     from repro_torch.kernels.flash_attn.ops import heads_first
     from repro_torch.kernels.flash_attn.ref import flash_attention_plain
     from repro_torch.testing import flash_close
@@ -4025,6 +4029,214 @@ def phase17(smi, name, root, dev, reset_counts, counters, lm_tokens):
     return launches["a"], launches["c"]
 
 
+# Phase 18: the dry run.  (a) every cell on the 16 x 16 meta mesh; (b) and
+# (c) its predictions held against real runs of cuts that one card holds
+DRY_BUDGET_S = 300.0      # (a): past this, the remaining train_4k cells are cut
+DRY_FAMILY = {"dense": "qwen3-0.6b", "moe": "olmoe-1b-7b", "ssm": "rwkv6-3b",
+              "hybrid": "recurrentgemma-2b", "vlm": "llama-3.2-vision-11b",
+              "audio": "whisper-medium"}   # (a)'s train_4k cell kept a family if cut
+DRY_SERVE = (("qwen3-0.6b", 1024), ("rwkv6-3b", 1024))   # (c): arch, prompt tokens
+
+
+def dry_cells():
+    """(a)'s cells in the order they run: the serving cells and one
+    train_4k cell a family first, then the other train_4k cells."""
+    from repro_torch.configs.base import all_arch_names
+    from repro_torch.launch.shapes import SHAPES
+
+    first = [(a, s) for a in all_arch_names() for s in SHAPES if s != "train_4k"]
+    first += [(a, "train_4k") for a in DRY_FAMILY.values()]
+    rest = [(a, "train_4k") for a in all_arch_names() if a not in DRY_FAMILY.values()]
+    return first, rest
+
+
+def phase18_dryrun(smi):
+    """(a) launch/dryrun.py's 40 cells on the 16 x 16 meta mesh, in this
+    process; one line a cell, and whether its largest position fits this
+    card.  The skips must be the port's cell_supported's, and no cell may
+    fail (trace_cell raises)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.launch.shapes import SHAPES, cell_supported
+    from repro_torch.launch.steps import StepOptions
+
+    opts = StepOptions(sharding_mode="auto")    # the dry run CLI's defaults
+    card = torch.cuda.get_device_properties(0).total_memory
+    gib = 2.0 ** 30
+    first, rest = dry_cells()
+    t0 = time.perf_counter()
+    recs, cut = [], []
+    for arch, shape in first + rest:
+        if (arch, shape) in rest and time.perf_counter() - t0 > DRY_BUDGET_S:
+            cut.append(f"{arch} {shape}")
+            continue
+        rec = trace_cell(arch, shape, opts=opts)
+        recs.append(rec)
+        assert ("skipped" in rec) == (cell_supported(get_config(arch), SHAPES[shape]) is not None)
+        if "skipped" in rec or "refused" in rec:
+            print(f"phase 18 (a) {arch} {shape} 16x16: "
+                  f"{'SKIP' if 'skipped' in rec else 'REFUSED'} "
+                  f"({rec.get('skipped') or rec.get('refused')})")
+            continue
+        ma, st = rec["memory_analysis"], rec["stats"]
+        fits = rec["largest_position_bytes"] <= card
+        print(f"phase 18 (a) {arch} {shape} 16x16 {rec['sharding_mode']}: largest position "
+              f"{rec['largest_position_bytes'] / gib:.2f} GiB = arguments "
+              f"{ma['argument_size_in_bytes'] / gib:.3f} + temp (estimate) "
+              f"{ma['temp_size_in_bytes'] / gib:.2f} + gathered model "
+              f"{rec['gathered_model_bytes'] / gib:.2f}; fits this card ({card / gib:.1f} GiB): "
+              f"{fits}; FLOPs a position {rec['cost_analysis']['flops']:.4e}; a step gathered "
+              f"{st['gathered'] / gib:.2f} GiB, reduced {st['reduced'] / gib:.2f} GiB; kernels "
+              f"{rec['kernel_launches']}; trace {rec['trace_s']} s")
+    wall = time.perf_counter() - t0
+    traced = [r for r in recs if "skipped" not in r and "refused" not in r]
+    over = [f"{r['arch']} {r['shape']}" for r in traced if r["largest_position_bytes"] > card]
+    print(f"phase 18 (a): {len(recs)} cells in {wall:.1f} s ({len(traced)} traced, "
+          f"{sum('skipped' in r for r in recs)} skipped, {sum('refused' in r for r in recs)} "
+          f"refused), cut for time: {cut or 'none'}; not fitting one card: {over}")
+    return recs
+
+
+def state_nbytes(params, opt, devices):
+    """Bytes of a real train state: the masters (each device's compute
+    model once), and on a mesh the blocks of parameters, m and v, and the
+    step counts."""
+    from repro_torch.launch.placement import MeshParams
+
+    def nb(xs):
+        return sum(x.numel() * x.element_size() for x in xs if x is not None)
+
+    if not isinstance(params, MeshParams):
+        return nb(params.parameters()) + nb(opt["m"].values()) + nb(opt["v"].values()) \
+            + nb([opt["step"]])
+    total = sum(nb(params.compute_model(d).parameters()) for d in set(devices))
+    for blocks in (params.blocks, opt["m"], opt["v"]):
+        total += sum(nb(bs) for bs in blocks.values())
+    return total + nb(opt["step"])
+
+
+def phase18_train(smi, dev):
+    """(b) qwen3-0.6b at phase 16 (b)'s shape traced on meta for (1, 1) and
+    (2, 2), then one real step through launch/train.py::build on the card
+    and on phase 17's (2, 2) mesh of it: state bytes, gathered/reduced and
+    FLOPs predicted against measured, exactly."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_lm_batch
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.op_analysis import OpAnalysis
+    from repro_torch.launch.shapes import ShapeCell
+    from repro_torch.launch.steps import StepOptions
+    from repro_torch.launch.train import build
+
+    arch, b, seq, chunk = TRAIN_FULL[:4]
+    cfg = get_config(arch)
+    opts = StepOptions(ce_chunk=chunk)
+    cell = ShapeCell("train_8x1k", seq, b, "train")
+    batch = {k: torch.as_tensor(v).to(dev)
+             for k, v in make_lm_batch(0, 0, b, seq, cfg.vocab_size).items()}
+    gib = 2.0 ** 30
+    for shape in ((1, 1), (2, 2)):
+        n = shape[0] * shape[1]
+        rec = trace_cell(arch, cell, opts=opts, mesh_shape=shape, devices=[dev] * n)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        params, opt, step, _ = build(cfg, make_host_mesh(*shape, devices=[dev] * n), opts, 2)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with OpAnalysis() as mode:
+            params, opt, metrics = step(params, opt, batch)
+            loss = float(metrics["loss"])
+        step_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - held
+        real = mode.result
+        state = state_nbytes(params, opt, [dev] * n)
+        stats = dict(getattr(step, "stats", {"gathered": 0, "reduced": 0}))
+        model = params if n == 1 else params.compute_model(dev)
+        model_flops = train_model_flops(cfg, model, b, seq)
+        assert np.isfinite(loss), loss
+        assert rec["state_bytes"] == state, (shape, rec["state_bytes"], state)
+        assert rec["stats"] == stats, (shape, rec["stats"], stats)
+        assert rec["step_flops"] == real.flops, (shape, rec["step_flops"], real.flops)
+        temp = rec["memory_analysis"]["temp_size_in_bytes"]
+        print(f"phase 18 (b) {arch} {b} x {seq} (CE chunk {chunk}) on a {shape} mesh of {smi}: "
+              f"state predicted {rec['state_bytes']:,} B = measured {state:,} B "
+              f"(held {(held - base) / gib:.2f} GiB); gathered/reduced predicted "
+              f"{rec['stats']} = step.stats; FLOPs traced {rec['step_flops']:.6e} = the card's "
+              f"step under the op analysis {real.flops:.6e} ({real.ops} ATen ops), "
+              f"{rec['step_flops'] / model_flops:.4f}x train_model_flops ({model_flops:.4e}); "
+              f"loss {loss:.5f}; step {step_s:.2f} s with the analysis on")
+        print(f"  phase 18 (b) {shape}: peak_live_bytes a position (trace) {temp / gib:.3f} GiB, "
+              f"{rec['slices']} slice(s); the card's max_memory_allocated() - held "
+              f"{peak / gib:.3f} GiB; ratio {peak / temp:.3f} (not gated)")
+        del params, opt, step, model, mode
+        torch.cuda.empty_cache()
+
+
+def phase18_serve(smi, dev, reset_counts):
+    """(c) qwen3-0.6b's prefill of 1,024 tokens and one decode at the full
+    cache, rwkv6-3b's prefill of 1,024 (phase 14's request shapes), with the
+    kernels: the launches the trace predicts against the wrappers'
+    counters, the kernel and ATen FLOPs against the op analysis of the real
+    calls.  Returns (flash_attn bf16 launches, wkv launches) of the real
+    calls, each counted from 0 just before and read just after."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda
+    from repro_torch.kernels.wkv.kernel import wkv_cuda
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.launch.op_analysis import OpAnalysis
+    from repro_torch.launch.shapes import ShapeCell
+    from repro_torch.models import model as M
+
+    counters = {"flash_attn": flash_attention_cuda, "wkv": wkv_cuda}
+    flash = wkv_n = 0
+    for arch, prompt in DRY_SERVE:
+        cfg = get_config(arch)
+        params = M.init_params(torch.Generator(dev).manual_seed(LM_SEED), cfg)
+        tok = torch.as_tensor(np.random.default_rng(LM_SEED).integers(
+            0, cfg.vocab_size, (1, prompt)), dtype=torch.int32, device=dev)
+        cache = M.make_serve_cache(cfg, 1, prompt + 1, device=dev)
+        calls = [("prefill", prompt, lambda: M.prefill(params, cfg, {"tokens": tok}, cache))]
+        if cfg.family != "ssm":
+            calls.append(("decode", prompt + 1,
+                          lambda: M.decode_step(params, cfg, tok[:, -1:], cache, prompt)))
+        for kind, seq, call in calls:
+            rec = trace_cell(arch, ShapeCell(f"{kind}_1k", seq, 1, kind), mesh_shape=(1, 1))
+            reset_counts()
+            with OpAnalysis() as mode:
+                logits, _ = call()
+            torch.cuda.synchronize()
+            real = mode.result
+            launched = {k: fn.launches for k, fn in counters.items() if fn.launches}
+            flash += flash_attention_cuda.bf16_launches
+            wkv_n += wkv_cuda.launches
+            assert bool(torch.isfinite(logits).all()), (arch, kind)
+            assert rec["kernel_launches"] == launched == real.kernel_launches, \
+                (arch, kind, rec["kernel_launches"], launched, real.kernel_launches)
+            assert rec["kernel_flops"] == real.kernel_flops, (arch, kind)
+            assert rec["aten_flops"] == real.aten_flops, (arch, kind)
+            print(f"phase 18 (c) {arch} {kind} ({prompt} tokens, {cfg.dtype}) on {smi}: launches "
+                  f"predicted {rec['kernel_launches']} = counted on the card {launched}; kernel "
+                  f"FLOPs {rec['kernel_flops']} and ATen FLOPs {rec['aten_flops']:.6e} = the "
+                  f"card's calls'")
+        del params, cache
+        torch.cuda.empty_cache()
+    return flash, wkv_n
+
+
+def phase18(smi, dev, reset_counts):
+    """The dry run (a) and its predictions against the card (b), (c).
+    Returns (c)'s (flash_attn bf16 launches, wkv launches)."""
+    t_phase = time.perf_counter()
+    phase18_dryrun(smi)
+    phase18_train(smi, dev)
+    launches = phase18_serve(smi, dev, reset_counts)
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4408,6 +4620,10 @@ def main():
     mesh_flash, mesh_wkv = phase17(smi, name, root, torch.device("cuda", 0), reset_counts,
                                    counters, lm_tokens)
 
+    # phase 18: the dry run and its predictions against the card (counts
+    # from 0 around each of (c)'s serving calls)
+    dry_flash, dry_wkv = phase18(smi, torch.device("cuda", 0), reset_counts)
+
     print(json.dumps({"kernels": [
         {
             "name": "knn_topk",
@@ -4466,8 +4682,8 @@ def main():
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
             "replaces": "src/repro/kernels/flash_attn/kernel.py:36",
-            "launches": flash_bf16_launches + lm_launches["flash_bf16"]   # phases 7, 14, 15, 17
-            + fam_launches["flash_bf16"] + mesh_flash,
+            "launches": flash_bf16_launches + lm_launches["flash_bf16"]   # phases 7, 14, 15, 17, 18
+            + fam_launches["flash_bf16"] + mesh_flash + dry_flash,
             **{key: flash_bf16_line[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                      "bound_by", "library_ms")},
         },
@@ -4476,8 +4692,9 @@ def main():
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/wkv.cu",
             "replaces": "src/repro/kernels/wkv/kernel.py:37",
-            **dict(wkv_line, launches=wkv_line["launches"] + lm_launches["wkv"]   # phases 8, 14, 16, 17
-                   + train_wkv + mesh_wkv,
+            # phases 8, 14, 16-18
+            **dict(wkv_line, launches=wkv_line["launches"] + lm_launches["wkv"]
+                   + train_wkv + mesh_wkv + dry_wkv,
                    max_abs_err=max(wkv_line["max_abs_err"], lm_errs["wkv"])),
             # library_ms null: no single PyTorch call computes WKV
         },

@@ -8,9 +8,16 @@ first use of any kernel, and again whenever a file under ``csrc/``
 changes: the hash covers every file there, headers included.  Each
 library exports ``<name>_launch(..., stream)``, which returns a CUDA error
 code, and ``<name>_error_string(code)``.
+
+The LM kernels' wrappers also tell an active ATen-op analysis
+(``launch/op_analysis.py``) what each call does: :func:`analysed` hides
+the wrapper's own ATen ops from it and counts one launch of the kernel
+with its FLOPs and bytes instead, on every device (the card, the CPU's
+plain version, and meta tensors, where nothing runs).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -26,6 +33,37 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+class KernelRefusal(ValueError):
+    """An input a kernel cannot take, by one of its named limits (head
+    width, chunk, grid size): raised on the card and on meta tensors alike."""
+
+
+# the op analysis listening (launch/op_analysis.py), if any: they do not nest
+RECORDERS: list = []
+_IDLE = contextlib.nullcontext()
+
+
+def analysed(name: str, launched: bool, work, *args):
+    """A context for a wrapper's body: unseen by the op analysis listening,
+    which then counts one launch of kernel ``name`` (if ``launched``) with
+    the (FLOPs, bytes) that ``work(*args)`` gives.  When none listens it is
+    a shared do-nothing context and ``work`` is not called."""
+    if not RECORDERS:
+        return _IDLE
+    return _analysed(RECORDERS[-1], name, launched, work, args)
+
+
+@contextlib.contextmanager
+def _analysed(rec, name, launched, work, args):
+    rec.paused += 1
+    try:
+        yield
+    finally:
+        rec.paused -= 1
+    if launched:
+        rec.kernel(name, *work(*args))
 
 
 def _nvcc() -> str:

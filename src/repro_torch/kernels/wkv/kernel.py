@@ -15,6 +15,12 @@ grad, the wrapper raises on either device; a model trains through the plain
 route (``kernels=False``, ``models/rwkv6.py::_chunked_wkv``), as the
 reference does.
 ``wkv_cuda.launches`` counts calls that launched, one a call.
+
+On meta tensors (the dry run, ``launch/dryrun.py``) nothing runs: the
+wrapper makes every check the card path makes and returns an empty output
+of the right shape and dtype.  On every device an active op analysis
+(``launch/op_analysis.py``) counts one launch a call with
+:func:`wkv_work`'s FLOPs and bytes; ``launches`` counts only the card's.
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._build import check, launch, load, refuse_autograd
+from repro_torch.kernels._build import KernelRefusal, analysed, check, launch, load, refuse_autograd
 from repro_torch.kernels.wkv.ref import wkv_plain
 
 HEAD_SIZES = (16, 32, 64)
@@ -44,6 +50,36 @@ def launch_shapes(bh: int, t: int, kk: int, chunk: int) -> dict:
     return {name: tuple(vals[3 * i:3 * i + 3]) for i, name in enumerate(KERNELS)}
 
 
+def wkv_flops(bh: int, t: int, kk: int, chunk: int) -> float:
+    """Per chunk and head: the strictly causal scores and their product
+    with v (C(C-1)/2 pairs each), the state apply and the state update (C·K²)."""
+    return bh * -(-t // chunk) * (2.0 * kk * chunk * (chunk - 1) + 4.0 * chunk * kk * kk)
+
+
+def wkv_work(r: torch.Tensor, chunk: int):
+    """(FLOPs, bytes) of one call: :func:`wkv_flops`, and r, k, v, lw and u
+    read once and the output written once (the scratch not counted)."""
+    bh, t, kk = r.shape
+    return wkv_flops(bh, t, kk, chunk), 5 * r.numel() * r.element_size() + 4 * bh * kk
+
+
+def _checked(r, k, v, lw, u, chunk, dev):
+    """(BH, T, K) after every check the kernels make of their arguments."""
+    if r.dim() != 3:
+        raise ValueError("r, k, v and lw must be 3-d: (BH, T, K)")
+    bh, t, kk = r.shape
+    if kk not in HEAD_SIZES:
+        raise KernelRefusal(f"head size {kk} is not one the kernel takes: {HEAD_SIZES}")
+    if chunk not in CHUNKS:
+        raise KernelRefusal(f"chunk {chunk} is not one the kernel takes: {CHUNKS}")
+    if r.dtype not in _DTYPES:
+        raise TypeError(f"r has dtype {r.dtype}; the kernel takes float32 or bfloat16")
+    for name, x in (("r", r), ("k", k), ("v", v), ("lw", lw)):
+        check(name, x, r.dtype, (bh, t, kk), dev)
+    check("u", u, torch.float32, (bh, kk), dev)
+    return bh, t, kk
+
+
 def wkv_cuda(
     r: torch.Tensor,    # (BH, T, K) f32 or bf16
     k: torch.Tensor,
@@ -55,37 +91,32 @@ def wkv_cuda(
     """(BH, T, K) outputs in r.dtype, computed in f32."""
     refuse_autograd("wkv_cuda", "_chunked_wkv", r, k, v, lw, u)
     if r.device.type == "cpu":
-        return wkv_plain(r, k, v, lw, u, chunk=chunk)
+        with analysed("wkv", r.shape[0] * r.shape[1] > 0, wkv_work, r, chunk):
+            return wkv_plain(r, k, v, lw, u, chunk=chunk)
+    if r.device.type == "meta":
+        bh, t, _ = _checked(r, k, v, lw, u, chunk, r.device)
+        with analysed("wkv", bh * t > 0, wkv_work, r, chunk):
+            return torch.empty(r.shape, dtype=r.dtype, device=r.device)
     if r.device.type != "cuda":
-        raise ValueError(f"wkv_cuda runs on cuda or cpu tensors, got {r.device}")
+        raise ValueError(f"wkv_cuda runs on cuda, cpu or meta tensors, got {r.device}")
     dev = r.device
-    if r.dim() != 3:
-        raise ValueError("r, k, v and lw must be 3-d: (BH, T, K)")
-    bh, t, kk = r.shape
-    if kk not in HEAD_SIZES:
-        raise ValueError(f"head size {kk} is not one the kernel takes: {HEAD_SIZES}")
-    if chunk not in CHUNKS:
-        raise ValueError(f"chunk {chunk} is not one the kernel takes: {CHUNKS}")
-    if r.dtype not in _DTYPES:
-        raise TypeError(f"r has dtype {r.dtype}; the kernel takes float32 or bfloat16")
-    for name, x in (("r", r), ("k", k), ("v", v), ("lw", lw)):
-        check(name, x, r.dtype, (bh, t, kk), dev)
-    check("u", u, torch.float32, (bh, kk), dev)
+    bh, t, kk = _checked(r, k, v, lw, u, chunk, dev)
     if any(x.data_ptr() % 16 for x in (r, k, v, lw, u)):
         raise ValueError("r, k, v, lw and u must start on a 16-byte boundary")
 
-    out = torch.empty_like(r)
-    if bh * t == 0:
+    with analysed("wkv", bh * t > 0, wkv_work, r, chunk):
+        out = torch.empty_like(r)
+        if bh * t == 0:
+            return out
+        n_chunks = -(-t // chunk)
+        states = torch.empty((bh, n_chunks, kk, kk), dtype=torch.float32, device=dev)
+        ltot = torch.empty((bh, n_chunks, kk), dtype=torch.float32, device=dev)
+        launch("wkv", _ARGTYPES, dev,
+               r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(), u.data_ptr(),
+               out.data_ptr(), states.data_ptr(), ltot.data_ptr(), _DTYPES[r.dtype], bh, t, kk,
+               chunk)
+        wkv_cuda.launches += 1
         return out
-    n_chunks = -(-t // chunk)
-    states = torch.empty((bh, n_chunks, kk, kk), dtype=torch.float32, device=dev)
-    ltot = torch.empty((bh, n_chunks, kk), dtype=torch.float32, device=dev)
-    launch("wkv", _ARGTYPES, dev,
-           r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(), u.data_ptr(),
-           out.data_ptr(), states.data_ptr(), ltot.data_ptr(), _DTYPES[r.dtype], bh, t, kk,
-           chunk)
-    wkv_cuda.launches += 1
-    return out
 
 
 wkv_cuda.launches = 0

@@ -64,6 +64,38 @@ def build_store(cfg: JoinConfig, S, num_shards: int, device=None):
     return ShardedKNNStore.build(S, _spec(cfg), mesh=mesh)
 
 
+def dryrun_ring(cfg: JoinConfig, multi_pod: bool = False, mesh=None) -> dict:
+    """The ring join's plan on the production mesh (or ``mesh``), from the
+    shapes alone: the counterpart of the reference's lower and compile of
+    the ring program with no data.
+
+    The port's ring (``core/ring.py``) builds each visiting S shard's index
+    on the host from its data at every step, so it cannot be traced on meta
+    tensors; what the placement fixes is recorded instead: the ring's size
+    and steps, the rows padded to it (``pad_to_ring``), each position's R
+    and S shard bytes at ``f = 2 · nnz_mean`` features a row (i32 indices,
+    f32 values, an i32 nnz), and the S bytes each ring step sends (every
+    position passes its S shard on).  A sparse join's FLOPs depend on the
+    data (which tiles are occupied, what IIIB prunes) and are not
+    predicted."""
+    from repro_torch.launch.mesh import make_production_mesh
+
+    mesh = mesh if mesh is not None else make_production_mesh(multi_pod=multi_pod)
+    n_ring = mesh.shape["data"] * mesh.shape.get("pod", 1)
+    f = cfg.nnz_mean * 2
+    nr = -(-cfg.n_r // n_ring) * n_ring
+    ns = -(-cfg.n_s // n_ring) * n_ring
+    row = 4 * f + 4 * f + 4
+    s_shard = ns // n_ring * row
+    return {
+        "mesh": dict(mesh.shape), "n_ring": n_ring, "nr": nr, "ns": ns, "features": f,
+        "r_shard_bytes": nr // n_ring * row, "s_shard_bytes": s_shard,
+        "steps": n_ring, "rotations": n_ring - 1,
+        "s_bytes_sent_per_step": n_ring * s_shard,
+        "s_bytes_sent": (n_ring - 1) * n_ring * s_shard,
+    }
+
+
 def _ready(t: torch.Tensor) -> None:
     """Wait for the device that computes ``t``."""
     if t.is_cuda:

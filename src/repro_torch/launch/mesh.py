@@ -10,11 +10,14 @@ shape by name.  Nothing here starts a process group.
 A mesh is only what the caller builds.  The builders take ``devices=``:
 ``None`` (or ``"cuda"``) means every visible CUDA device, and asking for
 more than there are raises, naming both counts; ``"cpu"`` gives as many
-CPU entries as asked; an explicit list is used as given, and may repeat
-one device (``[torch.device("cuda:0")] * 4``: four shards on one card,
-the counterpart of the reference's forced host devices).
+CPU entries as asked, and ``"meta"`` as many meta entries (a mesh that
+nothing runs on, only planned against: the dry run's, ``launch/dryrun.py``);
+an explicit list is used as given, and may repeat one device
+(``[torch.device("cuda:0")] * 4``: four shards on one card, the
+counterpart of the reference's forced host devices).
 
 Mesh semantics (DESIGN.md §5):
+  pod   — slow inter-pod links; pure data parallelism.
   data  — data-parallel axis (the ring join's R/S row shards).
   model — the join's dimension axis (``dim_axis``).
   shard — the store's row-range shards; ``replica`` its copies.
@@ -66,24 +69,36 @@ class DeviceMesh:
 
 def _pool(devices) -> Optional[List[torch.device]]:
     """The devices a builder may take: a list, or None for "as many CPU
-    entries as asked"."""
+    (or meta) entries as asked"."""
     if devices is None or devices == "cuda":
         return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    if devices == "cpu":
+    if devices in ("cpu", "meta"):
         return None
     if isinstance(devices, (str, torch.device)):
-        raise ValueError(f"devices must be None, 'cuda', 'cpu' or a list, got {devices!r}")
+        raise ValueError(f"devices must be None, 'cuda', 'cpu', 'meta' or a list, "
+                         f"got {devices!r}")
     return [torch.device(d) for d in devices]
 
 
 def _take(devices, need: int) -> List[torch.device]:
     pool = _pool(devices)
     if pool is None:
-        return [torch.device("cpu")] * need
+        return [torch.device(devices)] * need
     if need > len(pool):
         kind = "CUDA devices" if devices is None or devices == "cuda" else "devices"
         raise ValueError(f"need {need} {kind}, have {len(pool)}")
     return pool[:need]
+
+
+def make_production_mesh(multi_pod: bool = False, devices="meta") -> DeviceMesh:
+    """The production mesh: ``(16, 16)`` over ``('data', 'model')``, or
+    ``(2, 16, 16)`` with ``'pod'`` first.  Meta entries by default: nothing
+    runs on it here, it is planned against (``launch/dryrun.py``); a list
+    of devices lays it on them, under the same count check."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    devs = _take(devices, int(np.prod(shape)))
+    return DeviceMesh(np.array(devs, dtype=object).reshape(shape), axes)
 
 
 def make_host_mesh(data: int = 1, model: int = 1, devices=None) -> DeviceMesh:

@@ -101,6 +101,9 @@ class StepOptions:
     adamw: AdamWConfig = AdamWConfig()
 
 
+TOTAL_STEPS = 10_000   # the learning-rate schedule's length unless a step is given one
+
+
 def mesh_size(mesh) -> int:
     """The number of positions of ``mesh`` (1 for None)."""
     return 1 if mesh is None else int(mesh.devices.size)
@@ -169,7 +172,8 @@ def _split_microbatches(batch, mb: int):
     return [{k: v[i * n:(i + 1) * n] for k, v in batch.items()} for i in range(mb)]
 
 
-def make_train_step(cfg, mesh=None, opts: StepOptions = StepOptions(), total_steps: int = 10_000):
+def make_train_step(cfg, mesh=None, opts: StepOptions = StepOptions(),
+                    total_steps: int = TOTAL_STEPS):
     """(params, opt_state, batch) -> (params, opt_state, metrics).
 
     ``params`` is a model built to train (``init_train_state``: f32 master
@@ -244,6 +248,86 @@ def check_moe_groups(cfg, tokens: int, slices: int) -> None:
             "groups")
 
 
+def slice_forward(cfg, mesh, opts: StepOptions, model, batch, device):
+    """One batch slice's forward on its position's compute model ``model``
+    (on ``device``, the batch slice there too), under the slice's activation
+    constraints: (the slice's summed NLL, the MoE layers' balance records,
+    ``models/moe.py::record_balance``'s), both still holding the graph."""
+    _require_grad(dict(model.named_parameters()))
+    hooks = (make_activation_constraint(mesh, opts.seq_shard_activations, opts.sharding_mode,
+                                        device),
+             make_named_constraint(mesh, opts.sharding_mode, device))
+    with torch.enable_grad(), activation_sharding(*hooks), record_balance() as bal:
+        hidden, _ = M.train_hidden_states(model, cfg, batch)
+        nll, _ = chunked_ce(hidden, M.unembed_weight(model, cfg), batch["labels"],
+                            opts.ce_chunk)
+    return nll, bal
+
+
+def balance_means(balances, device):
+    """The MoE balance's frac_tokens and frac_probs (detached) averaged over
+    the slices' records, a layer at a time, on ``device`` (the slices are of
+    equal size: the mean of their means over all tokens)."""
+    d = len(balances)
+    layers = range(len(balances[0]))
+    ft = [torch.stack([bal[i][0].to(device) for bal in balances]).sum(0) / d for i in layers]
+    fp = [torch.stack([bal[i][1].detach().to(device) for bal in balances]).sum(0) / d
+          for i in layers]
+    return ft, fp
+
+
+def slice_grads(cfg, opts: StepOptions, model, nll, bal, frac_tokens, count, slices: int):
+    """{name: gradient} of one slice's share of the whole batch's loss:
+    ``nll / C`` plus its balance term over ``slices`` slices (the module
+    doc), taken on the slice's compute model."""
+    dev = nll.device
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    part = nll / torch.clamp(count.to(dev), min=1.0)
+    if bal:
+        term = torch.zeros((), dtype=torch.float32, device=dev)
+        for f_t, (_, f_p) in zip(frac_tokens, bal):
+            term = term + e * torch.sum(f_t.to(dev) * f_p) * k
+        part = part + opts.aux_weight * (term / slices)
+    leaves = dict(model.named_parameters())
+    with torch.enable_grad():
+        grads = torch.autograd.grad(part, list(leaves.values()), allow_unused=True)
+    # a leaf the loss does not reach gets 0, as in JAX
+    return {name: torch.zeros_like(leaf) if g is None else g
+            for (name, leaf), g in zip(leaves.items(), grads)}
+
+
+def grad_norm(params: MeshParams, grads, positions=None) -> torch.Tensor:
+    """The global gradient norm of a mesh step, on position 0's device:
+    each distinct block once, squared and summed on the first position
+    holding it.  ``positions`` keeps only the blocks those positions sum
+    (one position's share of the work)."""
+    dev0 = params.devices[0]
+    sq = torch.zeros((), dtype=torch.float32, device=dev0)
+    for name, boxes in params.boxes.items():
+        for p, _ in unique_boxes(boxes):
+            if positions is None or p in positions:
+                sq = sq + torch.sum(torch.square(grads[name][p].float())).to(dev0)
+    return torch.sqrt(sq)
+
+
+def update_position(params: MeshParams, p: int, grads, opt, clip, cfg_a: AdamWConfig,
+                    total_steps: int):
+    """AdamW on position ``p``'s blocks, on its device, with the step's
+    ``clip`` scale; advances its step count.  Returns the learning rate."""
+    dev = params.devices[p]
+    lr_scale = warmup_cosine(opt["step"][p], total=total_steps)
+    step, b1t, b2t, lr = adamw_scalars(opt["step"][p], cfg_a, lr_scale)
+    c = clip.to(dev)
+    with torch.no_grad():
+        for name in params.names():
+            blk = params.blocks[name][p]
+            if blk is not None:
+                adamw_leaf_update(blk, grads[name][p], opt["m"][name][p], opt["v"][name][p], c,
+                                  b1t, b2t, lr, cfg_a, decays(name, blk))
+    opt["step"][p] = step
+    return lr
+
+
 def _make_mesh_train_step(cfg, mesh, opts: StepOptions, total_steps: int):
     mode = opts.sharding_mode
     e, k = cfg.num_experts, cfg.num_experts_per_tok
@@ -264,45 +348,22 @@ def _make_mesh_train_step(cfg, mesh, opts: StepOptions, total_steps: int):
             dev = params.devices[p]
             model, moved = params.gather(dev)
             stats["gathered"] += moved
-            _require_grad(dict(model.named_parameters()))
             sub = {key: torch.as_tensor(v)[lo:hi].to(dev) for key, v in batch.items()}
-            hooks = (make_activation_constraint(mesh, opts.seq_shard_activations, mode, dev),
-                     make_named_constraint(mesh, mode, dev))
-            with torch.enable_grad(), activation_sharding(*hooks), record_balance() as bal:
-                hidden, _ = M.train_hidden_states(model, cfg, sub)
-                nll, _ = chunked_ce(hidden, M.unembed_weight(model, cfg), sub["labels"],
-                                    opts.ce_chunk)
-            runs.append((dev, model, nll, bal))
+            runs.append((model, *slice_forward(cfg, mesh, opts, model, sub, dev)))
         d = len(runs)
-        # the balance loss's means over all tokens, a layer at a time (the
-        # slices are of equal size: the mean of their means)
-        layers = range(len(runs[0][3]))
-        ft = [torch.stack([bal[i][0].to(dev0) for *_, bal in runs]).sum(0) / d for i in layers]
-        fp = [torch.stack([bal[i][1].detach().to(dev0) for *_, bal in runs]).sum(0) / d
-              for i in layers]
+        ft, fp = balance_means([bal for *_, bal in runs], dev0)
         aux = torch.zeros((), dtype=torch.float32, device=dev0)
         for f_t, f_p in zip(ft, fp):
             aux = aux + e * torch.sum(f_t * f_p) * k
         nll_sum = torch.zeros((), dtype=torch.float32, device=dev0)
-        for _, _, nll, _ in runs:
+        for _, nll, _ in runs:
             nll_sum = nll_sum + nll.detach().to(dev0)
         ce = nll_sum / torch.clamp(count, min=1.0)
         loss = ce + opts.aux_weight * aux
 
         acc = {}     # (name, owner group) -> the gradient block summed so far
-        for dev, model, nll, bal in runs:
-            part = nll / torch.clamp(count.to(dev), min=1.0)
-            if bal:
-                term = torch.zeros((), dtype=torch.float32, device=dev)
-                for f_t, (_, f_p) in zip(ft, bal):
-                    term = term + e * torch.sum(f_t.to(dev) * f_p) * k
-                part = part + opts.aux_weight * (term / d)
-            leaves = dict(model.named_parameters())
-            with torch.enable_grad():
-                grads = torch.autograd.grad(part, list(leaves.values()), allow_unused=True)
-            for (name, leaf), g in zip(leaves.items(), grads):
-                if g is None:   # a leaf the loss does not reach gets 0, as in JAX
-                    g = torch.zeros_like(leaf)
+        for model, nll, bal in runs:
+            for name, g in slice_grads(cfg, opts, model, nll, bal, ft, count, d).items():
                 for i, (box, owner, _) in enumerate(params.owners[name]):
                     piece = g[box]
                     stats["reduced"] += piece.numel() * piece.element_size()
@@ -322,30 +383,12 @@ def _make_mesh_train_step(cfg, mesh, opts: StepOptions, total_steps: int):
     def update(params: MeshParams, grads, opt):
         """AdamW on every block, on its owner; the norm counts each
         distinct block once."""
-        cfg_a = opts.adamw
-        dev0 = params.devices[0]
-        sq = torch.zeros((), dtype=torch.float32, device=dev0)
-        for name, boxes in params.boxes.items():
-            for p, _ in unique_boxes(boxes):
-                sq = sq + torch.sum(torch.square(grads[name][p].float())).to(dev0)
-        gnorm = torch.sqrt(sq)
-        clip = clip_scale(gnorm, cfg_a)
-        lr0 = None
-        with torch.no_grad():
-            for p, dev in enumerate(params.devices):
-                lr_scale = warmup_cosine(opt["step"][p], total=total_steps)
-                step, b1t, b2t, lr = adamw_scalars(opt["step"][p], cfg_a, lr_scale)
-                c = clip.to(dev)
-                for name in params.names():
-                    blk = params.blocks[name][p]
-                    if blk is not None:
-                        adamw_leaf_update(blk, grads[name][p], opt["m"][name][p],
-                                          opt["v"][name][p], c, b1t, b2t, lr, cfg_a,
-                                          decays(name, blk))
-                opt["step"][p] = step
-                lr0 = lr if lr0 is None else lr0
+        gnorm = grad_norm(params, grads)
+        clip = clip_scale(gnorm, opts.adamw)
+        lrs = [update_position(params, p, grads, opt, clip, opts.adamw, total_steps)
+               for p in range(len(params.devices))]
         params.updated()
-        return {"grad_norm": gnorm, "lr": lr0}
+        return {"grad_norm": gnorm, "lr": lrs[0]}
 
     def train_step(params, opt_state, batch):
         if not isinstance(params, MeshParams):
@@ -382,6 +425,17 @@ def init_train_state(cfg, generator: torch.Generator = None, device=None):
     if generator is None:
         generator = torch.Generator(resolve_device(device)).manual_seed(0)
     params = M.init_params(generator, cfg, kernels=False, master=True)
+    return params, adamw_init(params)
+
+
+def abstract_train_state(cfg):
+    """``init_train_state``'s model and AdamW state on the meta device:
+    every leaf's shape and dtype, no data (the reference's ``jax.eval_shape``
+    of ``init_train_state``; a meta device has no generator to draw from).
+    The parameters are the f32 masters where the reference's leaf is in the
+    compute dtype (bf16 for most archs): the masters are what the port
+    stores and updates."""
+    params = M.abstract_params(cfg, kernels=False, master=True)
     return params, adamw_init(params)
 
 

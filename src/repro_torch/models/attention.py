@@ -188,8 +188,13 @@ def self_attention(
             wnd = window or w
             m = (sp >= 0) & (sp <= pos) & (sp > pos - wnd)
             if p.kernels:
-                # the visible slots; a softmax does not depend on the keys' order
-                seen = torch.nonzero(m).squeeze(1)
+                # the visible slots; a softmax does not depend on the keys' order.
+                # A meta cache holds no positions: as many slots as the card
+                # path passes, the first min(pos + 1, w, wnd)
+                if ck.is_meta:
+                    seen = slice(0, min(pos + 1, w, wnd))
+                else:
+                    seen = torch.nonzero(m).squeeze(1)
                 out = flash_sdpa(q, ck[:, seen].to(q.dtype), cv[:, seen].to(q.dtype),
                                  causal=False, device=q.device)
             else:

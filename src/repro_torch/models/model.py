@@ -2,7 +2,9 @@
 ``models/model.py``).
 
   init_params(generator, cfg)             — a model (``LM``) on the generator's device
+  abstract_params(cfg)                    — the same on the meta device (no data)
   forward(params, cfg, batch)             — logits + aux (teacher-forced)
+  loss_fn(params, cfg, batch)             — full-logits CE + 0.01·aux
   hidden_states(params, cfg, batch)       — final-norm hidden states + aux
   train_hidden_states(params, cfg, batch) — the same with autograd on (the loss)
   make_serve_cache / prefill / decode_step — serving paths
@@ -86,6 +88,12 @@ def init_params(generator: torch.Generator, cfg, kernels: bool = True,
     return LM(cfg, generator=generator, kernels=kernels, master=master)
 
 
+def abstract_params(cfg, kernels: bool = True, master: bool = False) -> LM:
+    """The model on the meta device: every parameter's shape and dtype, no
+    data (the reference's ``jax.eval_shape`` of ``init_params``)."""
+    return LM(cfg, device="meta", kernels=kernels, master=master)
+
+
 # ---------------------------------------------------------------------------
 # forward (teacher-forced eval)
 # ---------------------------------------------------------------------------
@@ -153,6 +161,21 @@ def forward(params, cfg, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
     summed over the layers)."""
     x, aux = _teacher_forced(params, cfg, batch)
     return _unembed(params, cfg, x), aux
+
+
+def loss_fn(params, cfg, batch: Dict) -> Tuple[torch.Tensor, Dict]:
+    """Mean cross-entropy of the full (B, S, V) f32 logits over the valid
+    (label >= 0) positions, plus 0.01 · aux, under the caller's grad mode.
+    The train step's loss is the chunked one (``launch/steps.py::loss_fn``),
+    which never holds the full logits."""
+    x, aux = _teacher_forced(params, cfg, batch)
+    logits = _unembed(params, cfg, x)
+    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+    valid = (labels >= 0).float()
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, torch.clamp(labels, min=0)[..., None])[..., 0]
+    ce = -(ll * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux, "tokens": valid.sum()}
 
 
 # ---------------------------------------------------------------------------

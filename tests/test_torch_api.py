@@ -27,6 +27,16 @@ def test_exports_equal_the_reference():
             assert getattr(mod, name).__module__.startswith("repro_torch."), name
 
 
+def test_model_exports_equal_the_reference():
+    """``repro_torch.models.__all__`` is the JAX package's, in its order."""
+    import repro.models
+    import repro_torch.models
+
+    assert repro_torch.models.__all__ == repro.models.__all__
+    for name in repro_torch.models.__all__:
+        assert getattr(repro_torch.models, name).__module__.startswith("repro_torch."), name
+
+
 def test_quickstart_api():
     """The README quickstart through repro_torch.core: generate, join,
     verify (the counterpart of tests/test_system.py::test_quickstart_api)."""

@@ -1742,3 +1742,86 @@ def test_mesh_server_on_card_gives_the_one_card_servers_tokens(cuda, arch):
         outs.append([r.out for r in reqs])
         assert len(srv.row_params) == 1
     assert outs[0] == outs[1] and counts[0] == counts[1] and sum(counts[0]) > 0
+
+
+# ---------------------------------------------------------------------------
+# the dry run's predictions (launch/dryrun.py, traced on meta) against real
+# runs on the card: chip_smoke.py phase 18 (b) and (c) at reduced configs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2)])
+def test_dryrun_train_predictions_hold_on_card(cuda, shape):
+    """qwen3 reduced and widened (its leaves shard), bf16 with f32 masters:
+    the state bytes, the gathered/reduced bytes and the step's FLOPs traced
+    on meta equal one real step's on a mesh of the card, exactly."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import make_lm_batch
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.op_analysis import OpAnalysis
+    from repro_torch.launch.placement import MeshParams
+    from repro_torch.launch.shapes import ShapeCell
+    from repro_torch.launch.steps import StepOptions
+    from repro_torch.launch.train import build
+
+    cfg = dataclasses.replace(_lm_cfg("qwen3-0.6b"), d_model=256, d_ff=512, vocab_size=512,
+                              dtype="bfloat16", remat=True)
+    dev = torch.device("cuda", 0)
+    n = shape[0] * shape[1]
+    opts = StepOptions(ce_chunk=16)
+    b, s = 8, 64
+    rec = trace_cell("qwen3-0.6b", ShapeCell("t", s, b, "train"), opts=opts, mesh_shape=shape,
+                     cfg=cfg, devices=[dev] * n)
+    params, opt, step, _ = build(cfg, make_host_mesh(*shape, devices=[dev] * n), opts, 2)
+    batch = {k: torch.as_tensor(v).to(dev)
+             for k, v in make_lm_batch(0, 0, b, s, cfg.vocab_size).items()}
+    with OpAnalysis() as mode:
+        params, opt, metrics = step(params, opt, batch)
+        assert np.isfinite(float(metrics["loss"]))
+    assert rec["step_flops"] == mode.result.flops > 0
+    assert rec["stats"] == dict(getattr(step, "stats", {"gathered": 0, "reduced": 0}))
+
+    def nb(xs):
+        return sum(x.numel() * x.element_size() for x in xs if x is not None)
+
+    if isinstance(params, MeshParams):
+        state = nb(params.compute_model(dev).parameters()) + nb(opt["step"])
+        for blocks in (params.blocks, opt["m"], opt["v"]):
+            state += sum(nb(bl) for bl in blocks.values())
+    else:
+        state = nb(params.parameters()) + nb(opt["m"].values()) + nb(opt["v"].values()) + 4
+    assert rec["state_bytes"] == state
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-3b", "recurrentgemma-2b"])
+def test_dryrun_serve_predictions_hold_on_card(cuda, arch):
+    """A bf16 prefill of 24 tokens and a decode at the full cache through
+    the kernels: the traced launches equal the wrappers' counters, the
+    traced kernel and ATen FLOPs the op analysis of the card's calls."""
+    import dataclasses
+
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.launch.op_analysis import OpAnalysis
+    from repro_torch.launch.shapes import ShapeCell
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(_lm_cfg(arch), dtype="bfloat16")
+    dev = torch.device("cuda", 0)
+    pos = 24
+    params = M.init_params(torch.Generator(dev).manual_seed(0), cfg)
+    tok = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (1, pos)),
+                          dtype=torch.int32, device=dev)
+    cache = M.make_serve_cache(cfg, 1, pos + 1, device=dev)
+    calls = (("prefill", pos, lambda: M.prefill(params, cfg, {"tokens": tok}, cache)),
+             ("decode", pos + 1, lambda: M.decode_step(params, cfg, tok[:, -1:], cache, pos)))
+    for kind, seq, call in calls:
+        rec = trace_cell(arch, ShapeCell(kind, seq, 1, kind), mesh_shape=(1, 1), cfg=cfg)
+        before = (flash_attention_cuda.launches, wkv_cuda.launches)
+        with OpAnalysis() as mode:
+            call()
+        counted = {k: n for k, n in (("flash_attn", flash_attention_cuda.launches - before[0]),
+                                     ("wkv", wkv_cuda.launches - before[1])) if n}
+        assert rec["kernel_launches"] == counted == mode.result.kernel_launches, kind
+        assert rec["kernel_flops"] == mode.result.kernel_flops, kind
+        assert rec["aten_flops"] == mode.result.aten_flops, kind

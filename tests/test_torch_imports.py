@@ -49,7 +49,8 @@ def test_the_guard_covers_the_port():
                 "models/moe.py", "models/rglru.py", "models/encdec.py",
                 "launch/steps.py", "launch/serve.py", "launch/train.py", "data/pipeline.py",
                 "optim/adamw.py", "optim/schedule.py", "optim/compress.py",
-                "launch/placement.py", "launch/compressed_train.py"):
+                "launch/placement.py", "launch/compressed_train.py", "launch/shapes.py",
+                "launch/op_analysis.py", "launch/dryrun.py"):
         assert port / rel in FILES, rel
     for rel in ("torch_quickstart.py", "torch_peptide_search.py", "torch_knnlm_serve.py"):
         assert ROOT / "examples" / rel in FILES, rel

@@ -28,7 +28,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
-sys.path.insert(0, str(ROOT))   # chip_smoke: ptxas_usage, FLASH_WIDTHS, visible_pairs
+sys.path.insert(0, str(ROOT))   # chip_smoke: ptxas_usage, FLASH_WIDTHS
 
 VARIANTS = {
     "base": [],
@@ -64,7 +64,8 @@ def main():
     if not torch.cuda.is_available():
         print("sweep_flash_bf16: no CUDA device", file=sys.stderr)
         return 1
-    from chip_smoke import FLASH_WIDTHS, cuda_ms, flash_qkv, ptxas_usage, visible_pairs
+    from chip_smoke import FLASH_WIDTHS, cuda_ms, flash_qkv, ptxas_usage
+    from repro_torch.kernels.flash_attn.kernel import visible_pairs
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda
     from repro_torch.kernels.flash_attn.ops import heads_first

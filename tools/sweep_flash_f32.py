@@ -58,7 +58,8 @@ def main():
     if not torch.cuda.is_available():
         print("sweep_flash_f32: no CUDA device", file=sys.stderr)
         return 1
-    from chip_smoke import FLASH_WIDTHS, cuda_ms, flash_qkv, ptxas_usage, visible_pairs
+    from chip_smoke import FLASH_WIDTHS, cuda_ms, flash_qkv, ptxas_usage
+    from repro_torch.kernels.flash_attn.kernel import visible_pairs
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda
     from repro_torch.kernels.flash_attn.ops import heads_first
