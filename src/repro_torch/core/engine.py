@@ -38,7 +38,10 @@ and ``refreeze`` recomputes IIIB's superset order.  The approximate tier
 bands at build time and, per R block, ANDs a band-lookup candidate mask
 into the same valid masks, so the exact drivers re-rank only the
 candidates.  ``plan`` takes a measured calibration.  Each R block is an
-``engine.r_block`` span, and IIIB's threshold traces feed the process
+``engine.r_block`` span with three children in order, ``engine.prep``,
+``engine.launch`` and ``engine.pull``; on CUDA it carries ``device_ms``,
+the device's time from the launch to the pull (two CUDA events, made
+only with tracing on).  IIIB's threshold traces feed the process
 registry's ``knn_min_prune_threshold`` histogram.
 
 ``distributed_join`` is the engine face of the multi-device join: the
@@ -348,6 +351,17 @@ def prepare_r_block_inputs(
         "mwt": iiib_mod.maxw_tiles(br, rank_dev, tile),
         "tiles": active_tile_list(_host_tile_any(r_idx, br.dim, tile, rank_np)),
     }
+
+
+def _timing_event(span, device: torch.device) -> Optional[torch.cuda.Event]:
+    """A timing event recorded on ``device``'s current stream, for an R
+    block's ``device_ms``; None with tracing off (``span`` None) or off
+    CUDA."""
+    if span is None or device.type != "cuda":
+        return None
+    event = torch.cuda.Event(enable_timing=True)
+    event.record(torch.cuda.current_stream(device))
+    return event
 
 
 def _pad_feature_axis(idx: np.ndarray, val: np.ndarray, f: int, dim: int):
@@ -957,8 +971,12 @@ class SparseKNNIndex:
         out_scores, out_ids = [], []
         for r0 in range(0, n_r, rb):
             # a leaf span per R block, parented to whatever span is active
-            # on this thread (None when tracing is off)
+            # on this thread, and three phases that tile it in order: prep
+            # (padding, uploads, the driver's R-side inputs), launch (every
+            # enqueue of the join) and pull (the block's one sync and the
+            # host work after it).  All None when tracing is off.
             span = obs_trace.start_span("engine.r_block", r0=r0, algorithm=algorithm)
+            phase = obs_trace.start_span("engine.prep", parent=span)
             stop = min(r0 + rb, n_r)
             idx, val, nnz, r_valid = _pad_rows_np(
                 r_idx[r0:stop], r_val[r0:stop], r_nnz[r0:stop], self.dim, rb)
@@ -966,12 +984,6 @@ class SparseKNNIndex:
             n_valid = stop - r0
             state = init_topk(rb, k, device=dev)                 # InitPruneScore
             aux = None
-            if sampled_ids is not None:
-                # warm-start pass: exact BF scores of the sample seed the
-                # top-k, and with it the MinPruneScore, on the device
-                state = merge_step(state, bf_block_scores(br, sample_block), sampled_dev)
-                stats.dense_pairs += rb * len(sampled_ids)
-                stats.device_dispatches += 1
 
             # approximate tier: one band-lookup pass gives the candidate mask
             # that the exact drivers re-rank (it ANDs into the valid masks)
@@ -1005,36 +1017,59 @@ class SparseKNNIndex:
                     stats.scanned_rows += int(live.sum())
                     stats.candidate_rows += int((cand_np & live).sum())
 
-            if algorithm == "bf":
-                if cached:
-                    state = self._query_bf_scanned(state, br, stats, rb, cand)
-                else:
-                    state = self._query_pairs(state, br, None, None, stats, rb, cand_np)
-            elif algorithm == "iib" and spec.use_kernel and cached:
-                state = self._query_fused_kernel(br, idx, stats, n_valid, col_cand)
+            # the driver's R-side inputs
+            fused = algorithm == "iib" and spec.use_kernel and cached
+            prep, kin, rv = {}, None, None
+            if fused:
+                kin = self.kernel_inputs(br, idx, n_valid, col_cand)
             elif algorithm == "iib":
                 prep = prepare_r_block_inputs(br, idx, "iib", tile,
                                               with_r_tiles=not spec.use_kernel)
-                if cached:
-                    state = self._query_iib_scanned(state, prep["r_tiles"], prep["tiles"], stats,
-                                                    cand)
-                else:
-                    state = self._query_pairs(state, br, prep.get("r_tiles"), prep["tiles"],
-                                              stats, rb, cand_np)
-            else:   # iiib — masked superset refinement, threshold in the carry
+            elif algorithm == "iiib":
                 prep = prepare_r_block_inputs(br, idx, "iiib", tile, rank_np=self._rank_np,
                                               rank_dev=self._rank_dev)
                 rv = torch.as_tensor(r_valid, device=dev)
-                if cached:
-                    state, aux = self._query_iiib_scanned(
-                        state, prep["r_tiles"], prep["mwt"], prep["tiles"], stats, sampled_mask,
-                        rv, cand)
-                else:
-                    state = self._query_pairs_iiib(
-                        state, prep["r_tiles"], prep["mwt"], prep["tiles"], stats, sampled_mask,
-                        rv, cand_np)
+            obs_trace.end_span(phase)
+
+            # a pushing span, so that the drivers' own spans parent here
+            with obs_trace.span("engine.launch", parent=span):
+                launched = _timing_event(span, dev)
+                if sampled_ids is not None:
+                    # warm-start pass: exact BF scores of the sample seed the
+                    # top-k, and with it the MinPruneScore, on the device
+                    state = merge_step(state, bf_block_scores(br, sample_block), sampled_dev)
+                    stats.dense_pairs += rb * len(sampled_ids)
+                    stats.device_dispatches += 1
+                if algorithm == "bf":
+                    if cached:
+                        state = self._query_bf_scanned(state, br, stats, rb, cand)
+                    else:
+                        state = self._query_pairs(state, br, None, None, stats, rb, cand_np)
+                elif fused:
+                    state = self._query_fused_kernel(kin, rb, stats)
+                    # the kernel's inputs go before the pull: held through
+                    # it, the fused join ran ~2% slower on the card
+                    kin = None
+                elif algorithm == "iib":
+                    if cached:
+                        state = self._query_iib_scanned(state, prep["r_tiles"], prep["tiles"],
+                                                        stats, cand)
+                    else:
+                        state = self._query_pairs(state, br, prep.get("r_tiles"), prep["tiles"],
+                                                  stats, rb, cand_np)
+                else:   # iiib — masked superset refinement, threshold in the carry
+                    if cached:
+                        state, aux = self._query_iiib_scanned(
+                            state, prep["r_tiles"], prep["mwt"], prep["tiles"], stats,
+                            sampled_mask, rv, cand)
+                    else:
+                        state = self._query_pairs_iiib(
+                            state, prep["r_tiles"], prep["mwt"], prep["tiles"], stats,
+                            sampled_mask, rv, cand_np)
 
             # the R block's result pull (IIIB's trace and counts ride along)
+            phase = obs_trace.start_span("engine.pull", parent=span)
+            pulled = _timing_event(span, dev)
             out_scores.append(state.scores[:n_valid].cpu())
             out_ids.append(state.ids[:n_valid].cpu())
             if aux is not None:
@@ -1046,6 +1081,10 @@ class SparseKNNIndex:
                 stats.candidate_rows += int(cand_count)
                 stats.host_syncs += 1            # the candidate count's pull
             stats.host_syncs += 1
+            obs_trace.end_span(phase)
+            if launched is not None:
+                # both events have completed: the pull synchronised past them
+                span.attrs["device_ms"] = launched.elapsed_time(pulled)
             obs_trace.end_span(span)
 
         dt = time.perf_counter() - t_q
@@ -1144,8 +1183,9 @@ class SparseKNNIndex:
         # trace = [seed, after block 0, ..., after block B-1]
         return state, {"thr": torch.cat([thr0[None], thr_trace]), "kept": kept}
 
-    def _query_fused_kernel(self, br, r_idx, stats, n_valid, col_cand=None):
-        """One fused score→top-k launch covers every S block.  The
+    def _query_fused_kernel(self, kin, rb, stats):
+        """One fused score→top-k launch covers every S block, on
+        :meth:`kernel_inputs`' ``kin`` for an R block of ``rb`` rows.  The
         threshold starts at the fresh state's MinPruneScore and rises inside
         the kernel across the S blocks; ``n_valid`` keeps padding rows out
         of the threshold reduce; tombstoned and (approx) non-candidate
@@ -1153,12 +1193,11 @@ class SparseKNNIndex:
         merge launch for each window of the stack take its place
         (``join_topk``, the same outputs; a window holds at most
         ``MAX_SCORES`` scores)."""
-        args, kwargs, n_active = self.kernel_inputs(br, r_idx, n_valid, col_cand)
+        args, kwargs, n_active = kin
         out_s, out_i = join_topk(*args, **kwargs)
         stats.device_dispatches += 1
         stats.blocks += len(self._blocks)
         stats.tiles_scored += n_active
-        rb = br.num_vectors
         return TopKState(scores=out_s[:rb], ids=out_i[:rb])
 
     # -- per-pair loops (streaming mode) -------------------------------------

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import to_device
+from repro_torch.obs import trace as obs_trace
 from repro_torch.sparse.format import DEFAULT_TILE, SparseBatch, num_tiles
 
 
@@ -289,11 +290,13 @@ def masked_tile_scores(
     kp = torch.cat([keep, torch.zeros((1, t_total), dtype=torch.bool, device=dev)])
     tt = to_device(torch.as_tensor(tiles), dev)     # no host sync: the store's shards overlap
     keep_lists = kp[index.rows[tt].long(), tt[:, None]]          # (A, M)
+    span = obs_trace.start_span("iiib.scatter", tiles=len(tiles))  # the host's tile steps
     for j, t in enumerate(tiles):
         rows_t = index.rows[t]
         p = r_dense_tiles[t] @ index.vals[t].T                   # (|Br|, M)
         acc_full.index_add_(1, rows_t, p)
         acc_kept.index_add_(1, rows_t, torch.where(keep_lists[j][None, :], p, 0.0))
+    obs_trace.end_span(span)
     return acc_kept[:, : index.num_s], acc_full[:, : index.num_s]
 
 

@@ -24,6 +24,14 @@ thread-local read and a None check.
 ``start_span``/``end_span`` are the non-pushing variant for leaf spans
 wrapped around loop bodies where a ``with`` block would force a reindent
 and nothing nests below them anyway.
+
+A device trace from ``torch.profiler`` stamps its events on another
+clock: Unix-epoch nanoseconds (kineto's ``start_ns()``).
+:func:`profiler_ns` maps a span's monotonic timestamp onto it, so an
+event of the trace can be put under the span that was running.  The
+offset between the two clocks is read once per process, from the
+tightest of a few back-to-back reads of both; a step of the wall clock
+after that read is not followed.
 """
 from __future__ import annotations
 
@@ -74,6 +82,33 @@ class Span:
     def __repr__(self) -> str:
         return (f"Span({self.name!r}, id={self.span_id}, "
                 f"parent={self.parent_id}, dur={self.duration_s})")
+
+
+_CLOCK_READS = 8
+_profiler_offset_ns: Optional[int] = None
+
+
+def _clock_offset_ns() -> int:
+    """``time.time_ns()`` minus ``time.monotonic_ns()``, from the pair of
+    reads that a wall-clock read fell between most tightly."""
+    best = None
+    for _ in range(_CLOCK_READS):
+        m0 = time.monotonic_ns()
+        wall = time.time_ns()
+        m1 = time.monotonic_ns()
+        if best is None or m1 - m0 < best[0]:
+            best = (m1 - m0, wall - (m0 + m1) // 2)
+    return best[1]
+
+
+def profiler_ns(t_mono: float) -> int:
+    """A span timestamp (``Span.t_start``/``t_end``, ``time.monotonic()``
+    seconds) on the profiler's clock: Unix-epoch nanoseconds, as kineto's
+    ``start_ns()`` reports an event."""
+    global _profiler_offset_ns
+    if _profiler_offset_ns is None:
+        _profiler_offset_ns = _clock_offset_ns()
+    return round(t_mono * 1e9) + _profiler_offset_ns
 
 
 def _stack() -> list:
@@ -174,6 +209,9 @@ def default_tracer() -> Tracer:
     """The process-default tracer (records to the default recorder).
     Store/engine spans outside any serving context land here."""
     global _default_tracer
+    tracer = _default_tracer
+    if tracer is not None:      # made once: read without the lock
+        return tracer
     with _default_lock:
         if _default_tracer is None:
             _default_tracer = Tracer()

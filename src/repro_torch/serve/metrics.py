@@ -177,7 +177,9 @@ class ServeMetrics:
             buckets=_OCCUPANCY_BUCKETS))
         # per-phase latency breakdown (the scheduler's span timings):
         # queue-wait (submit -> batch assembly), pad (coalesce + pad),
-        # dispatch (executor store.query wall incl. retries), post
+        # dispatch (the wait for the one dispatch worker, then its
+        # store.query wall, over every retry; the scheduler's
+        # ``serve.worker_wait`` spans time the wait), post
         # (metrics + de-interleave + future delivery)
         self.queue_wait = RollingWindow(hist=reg.histogram(
             "serve_phase_queue_wait_seconds", "submit -> batch assembly"))

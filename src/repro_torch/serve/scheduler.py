@@ -443,7 +443,7 @@ class KNNScheduler:
         return from_arrays(idx, val, nnz, self.dim)
 
     def _query_once(self, batch: SparseBatch, accuracy: Optional[str] = None,
-                    parent_span=None):
+                    parent_span=None, wait_span=None):
         """Executor-side: one store dispatch under the batch watchdog.
         Returns (ids, scores, JoinStats, index_builds_delta, missing_shards,
         routing) as host data; ``routing`` is this dispatch's replica-level
@@ -451,7 +451,9 @@ class KNNScheduler:
         track them (empty otherwise).  ``parent_span`` is the batch span the
         event loop started: the attach+span happens INSIDE the closure so
         the context lands on whichever thread actually runs the query
-        (``with_timeout`` moves it to a watchdog thread when armed)."""
+        (``with_timeout`` moves it to a watchdog thread when armed).
+        ``wait_span`` (``serve.worker_wait``) ends there too, as the query
+        starts."""
         st = getattr(self.store, "stats", None)
         builds0 = getattr(st, "index_builds", 0)
         fail0 = getattr(st, "replica_failovers", 0)
@@ -463,6 +465,7 @@ class KNNScheduler:
             kw["accuracy"] = accuracy
 
         def _call():
+            self.tracer.end(wait_span)
             with self.tracer.attach(parent_span):
                 with self.tracer.span("store.dispatch",
                                       rows=batch.num_vectors,
@@ -574,10 +577,13 @@ class KNNScheduler:
         delays = iter(self.config.retry.delays())
         recovery_waits = 0
         while True:
+            # the wait for the one dispatch worker, until the query starts
+            # on whichever thread runs it (a span each try)
+            wait = self.tracer.begin("serve.worker_wait", parent=bspan)
             try:
                 (ids, scores, stats, builds, missing,
                  routing) = await loop.run_in_executor(
-                    self._exec, self._query_once, batch, accuracy, bspan)
+                    self._exec, self._query_once, batch, accuracy, bspan, wait)
                 break
             except ShardLostError as e:
                 # allow_partial=False policy: queue this batch behind shard

@@ -1208,6 +1208,47 @@ def test_scheduler_on_card_store(cuda):
                           alone.ids[:, :k].cpu().numpy(), RTOL, ATOL)
 
 
+@pytest.mark.parametrize("algorithm,use_kernel", [("bf", False), ("iiib", False),
+                                                   ("iib", True)])
+def test_r_block_device_ms_on_card(cuda, monkeypatch, algorithm, use_kernel):
+    """With tracing on, each ``engine.r_block`` span carries ``device_ms``
+    from two CUDA events, positive and at most the span's own duration;
+    with tracing off no event is made.  ``host_syncs`` stays one an R
+    block both ways."""
+    from repro_torch.obs import recorder, trace
+
+    made = []
+    real_event = torch.cuda.Event
+
+    def counting_event(*a, **kw):
+        made.append(1)
+        return real_event(*a, **kw)
+
+    monkeypatch.setattr(torch.cuda, "Event", counting_event)
+    R = synthetic_sparse(300, dim=2000, nnz_mean=40, nnz_std=10, seed=3)
+    S = synthetic_sparse(600, dim=2000, nnz_mean=40, nnz_std=10, seed=4)
+    index = SparseKNNIndex.build(S, JoinSpec(k=5, algorithm=algorithm, use_kernel=use_kernel,
+                                             r_block=128, s_block=128))
+    rec = recorder.FlightRecorder()
+    old = recorder.get_recorder()
+    recorder.set_recorder(rec)
+    try:
+        for on in (False, True):
+            trace.set_tracing(on)
+            stats = JoinStats()
+            index.query(R.to("cuda"), stats=stats)
+            assert stats.host_syncs == 3
+            if not on:
+                assert made == [] and rec.events("span") == []
+    finally:
+        trace.set_tracing(True)
+        recorder.set_recorder(old)
+    blocks = [e for e in rec.events("span") if e["name"] == "engine.r_block"]
+    assert len(blocks) == 3 and len(made) == 6
+    for b in blocks:
+        assert 0 < b["attrs"]["device_ms"] <= b["dur_ms"], b
+
+
 def test_profile_capture_holds_topk_merge(cuda, tmp_path):
     """ProfileCapture, armed by the scheduler on its event-loop thread,
     traces the dispatch worker's kernels: the Chrome trace holds

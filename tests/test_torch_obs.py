@@ -5,9 +5,14 @@ same recorder dump and summary (timestamps and span ids aside, which are
 clocks and a process counter).  Then the engine's instruments: one
 ``engine.r_block`` span per R block under the caller's span, and an IIIB
 query through the port filling ``knn_min_prune_threshold`` with the JAX
-engine's bucket counts (sums within rtol=1e-5)."""
+engine's bucket counts (sums within rtol=1e-5).  Last, the port's own
+spans: the three phases that tile each R block on every path, IIIB's
+``iiib.scatter`` tile counts, nothing made with tracing off, and
+``trace.profiler_ns`` against ``torch.profiler``'s clock.  The card's
+``device_ms`` is held in ``tests/test_torch_cuda.py``."""
 import json
 import math
+import time
 
 import numpy as np
 import pytest
@@ -216,3 +221,164 @@ def test_iiib_threshold_histogram_equals_jax_engine(small_rs, fresh_obs, warm_st
     assert math.isclose(h.sum, jh.sum, rel_tol=1e-5)
     text = registry.get_registry().expose()
     assert "knn_min_prune_threshold_bucket" in text and text.endswith("# EOF\n")
+
+
+# the phases of an R block, in the order they tile it
+PHASES = ("engine.prep", "engine.launch", "engine.pull")
+# the query paths: (algorithm, use_kernel, cached)
+PATHS = [("bf", False, True), ("iib", False, True), ("iiib", False, True),
+         ("iib", True, True), ("iiib", False, False)]
+
+
+def _spans(name=None):
+    evs = recorder.get_recorder().events("span")
+    return [e for e in evs if name is None or e["name"] == name]
+
+
+@pytest.mark.parametrize("algorithm,use_kernel,cached", PATHS)
+def test_r_block_phases_tile_each_block_in_order(small_rs, fresh_obs, monkeypatch, algorithm,
+                                                  use_kernel, cached):
+    """Each R block's ``engine.r_block`` span has one ``engine.prep``,
+    ``engine.launch`` and ``engine.pull`` child, which follow each other
+    inside it; the padding falls under the prep (slowed here by 5 ms)."""
+    import repro_torch.core.engine as engine
+
+    R, S = small_rs
+    spec = JoinSpec(k=5, algorithm=algorithm, use_kernel=use_kernel, r_block=20, s_block=32)
+    index = SparseKNNIndex.build(_port(S), spec, cache_device_blocks=cached, device="cpu")
+    pad = engine._pad_rows_np
+
+    def slow_pad(*a, **kw):
+        time.sleep(5e-3)
+        return pad(*a, **kw)
+
+    monkeypatch.setattr(engine, "_pad_rows_np", slow_pad)
+    index.query(_port(R))
+    blocks = _spans("engine.r_block")
+    assert [b["attrs"]["r0"] for b in blocks] == [0, 20, 40]
+    children = {}
+    for e in _spans():
+        if e["name"] in PHASES:
+            children.setdefault(e["parent_id"], []).append(e)
+    assert set(children) == {b["span_id"] for b in blocks}
+    for b in blocks:
+        kids = sorted(children[b["span_id"]], key=lambda e: e["t_start"])
+        assert [e["name"] for e in kids] == list(PHASES)
+        edges = [b["t_start"]] + [t for e in kids for t in (e["t_start"], e["t_end"])]
+        edges.append(b["t_end"])
+        assert edges == sorted(edges)
+        assert kids[0]["dur_ms"] >= 5.0
+        assert "device_ms" not in b["attrs"]                # no CUDA events on the CPU
+
+
+@pytest.mark.parametrize("cached", [True, False])
+def test_iiib_scatter_spans_count_the_active_tiles(small_rs, fresh_obs, cached):
+    """One ``iiib.scatter`` span per S block under each ``engine.launch``,
+    its ``tiles`` the tiles the R block touches in the index's permuted dim
+    space, counted here from R's own indices."""
+    R, S = small_rs
+    rb, tile = 20, 128
+    index = SparseKNNIndex.build(
+        _port(S), JoinSpec(k=5, algorithm="iiib", r_block=rb, s_block=32, tile=tile),
+        cache_device_blocks=cached, device="cpu")
+    index.query(_port(R))
+    r_idx = np.asarray(R.indices)
+    launches = _spans("engine.launch")
+    scatters = _spans("iiib.scatter")
+    assert len(launches) == 3 and len(scatters) == 3 * index.num_blocks
+    for i, launch in enumerate(launches):
+        dims = r_idx[i * rb:(i + 1) * rb]
+        dims = dims[dims < R.dim]
+        want = np.unique(index._rank_np[dims] // tile).size
+        mine = [e for e in scatters if e["parent_id"] == launch["span_id"]]
+        assert [e["attrs"]["tiles"] for e in mine] == [want] * index.num_blocks
+        assert all(launch["t_start"] <= e["t_start"] <= e["t_end"] <= launch["t_end"]
+                   for e in mine)
+
+
+class _NoEvent:
+    """Stands in for ``torch.cuda.Event``: counts what the engine makes."""
+
+    made = 0
+
+    def __init__(self, *a, **kw):
+        type(self).made += 1
+
+
+@pytest.mark.parametrize("algorithm", ["bf", "iib", "iiib"])
+def test_tracing_off_no_span_no_event_and_one_sync_a_block(small_rs, fresh_obs, monkeypatch,
+                                                          algorithm):
+    """Tracing off: no span (the phases and IIIB's scatter included), no
+    timing event, and ``host_syncs`` one per R block, as with tracing on."""
+    from repro_torch.core.engine import JoinStats
+
+    R, S = small_rs
+    monkeypatch.setattr(torch.cuda, "Event", _NoEvent)
+    _NoEvent.made = 0
+    index = SparseKNNIndex.build(_port(S), JoinSpec(k=5, algorithm=algorithm, r_block=20,
+                                                    s_block=32), device="cpu")
+    syncs = []
+    for on in (False, True):
+        trace.set_tracing(on)
+        try:
+            stats = JoinStats()
+            index.query(_port(R), stats=stats)
+        finally:
+            trace.set_tracing(True)
+        syncs.append(stats.host_syncs)
+        if not on:
+            assert _spans() == []
+    assert syncs == [3, 3]
+    assert _NoEvent.made == 0
+    assert not any("device_ms" in e["attrs"] for e in _spans())
+
+
+def test_profiler_ns_puts_profiled_ops_inside_their_span():
+    """A span mapped onto the profiler's clock holds the kineto interval of
+    every op run inside it (``start_ns()``, ``duration_ns()``, read as
+    ``portbench/devtrace.py`` reads them), within 50 us; an op run after it
+    falls outside."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    assert abs(trace.profiler_ns(time.monotonic()) - time.time_ns()) < 1_000_000
+    tracer = trace.Tracer(recorder=recorder.FlightRecorder())
+    a = torch.randn(128, 128)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tracer.span("work") as s:
+            for _ in range(3):
+                a = torch.tanh(a @ a)
+        after = trace.profiler_ns(tracer.begin("after").t_start)
+        torch.relu(a)
+    lo, hi = trace.profiler_ns(s.t_start), trace.profiler_ns(s.t_end)
+    ops = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+           for e in prof.profiler.kineto_results.events() if e.device_type() != DeviceType.CUDA]
+    # on kineto's own clock: the relu and its children came after the span
+    t_relu = min(st for name, st, _ in ops if name == "aten::relu")
+    inside = [o for o in ops if o[1] < t_relu]
+    later = [o for o in ops if o[1] >= t_relu]
+    assert len(inside) >= 6 and any(o[0] == "aten::mm" for o in inside)
+    slack = 50_000
+    assert all(lo - slack <= st and en <= hi + slack for _, st, en in inside), (lo, hi, inside)
+    assert all(st >= after - slack for _, st, _ in later), (after, later)
+
+
+def test_a_failed_launch_ends_its_span_with_the_error(small_rs, fresh_obs, monkeypatch):
+    """A driver that raises inside ``engine.launch`` leaves the span ended
+    with ``error`` recorded and the thread's context back at the caller's
+    span, so later spans do not parent under the failed launch."""
+    R, S = small_rs
+    index = SparseKNNIndex.build(_port(S), JoinSpec(k=5, algorithm="bf", r_block=20,
+                                                    s_block=32), device="cpu")
+
+    def fail(*a, **kw):
+        raise RuntimeError("driver down")
+
+    monkeypatch.setattr(index, "_query_bf_scanned", fail)
+    with trace.span("request") as req:
+        with pytest.raises(RuntimeError, match="driver down"):
+            index.query(_port(R))
+        assert trace.current_span() is req
+    (launch,) = _spans("engine.launch")
+    assert launch["attrs"]["error"] == "RuntimeError: driver down"
+    assert launch["t_end"] is not None and _spans("engine.pull") == []

@@ -8,7 +8,8 @@ backpressure; submit while a batch is in flight; retry; batch timeout;
 stop without drain; the summary; validation) and of tests/test_obs.py's
 scheduler and metrics cases (the summary's schema frozen to the JAX
 ``ServeMetrics.summary()`` keys, registry cells, reset_window, phases, span
-parenting across the dispatch thread, mutate spans).
+parenting across the dispatch thread, mutate spans), and the port's
+``serve.worker_wait`` span: a batch's wait for the one dispatch worker.
 
 Then the port's store behind the scheduler: de-interleaving with ragged
 request sizes and per-request k, before and after mutations through
@@ -52,6 +53,7 @@ from repro_torch.obs import (  # noqa: E402
     set_recorder,
 )
 from repro_torch.obs.profile import ProfileCapture, fanout_report  # noqa: E402
+from repro_torch.obs.trace import Tracer  # noqa: E402
 from repro_torch.runtime.fault import FaultPlan, FaultSpec, RetryPolicy  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     KNNScheduler,
@@ -551,6 +553,55 @@ def test_span_parenting_across_threads(_fresh_recorder):
     assert by_id[dispatch["parent_id"]]["name"] == "batch"
     for rb in by_name["store.r_block"]:
         assert by_id[rb["parent_id"]]["name"] == "store.dispatch"
+
+
+def _worker_waits(rec):
+    """{batch span id: [its serve.worker_wait spans]}, batches in start order."""
+    spans = [e for e in rec.events() if e.get("kind") == "span"]
+    batches = sorted((e for e in spans if e["name"] == "batch"), key=lambda e: e["t_start"])
+    waits = [e for e in spans if e["name"] == "serve.worker_wait"]
+    return [(b, [w for w in waits if w["parent_id"] == b["span_id"]]) for b in batches]
+
+
+def test_worker_wait_spans_the_wait_for_the_one_worker(_fresh_recorder):
+    """Two batches flushed back to back: the second waits for the worker
+    about one service time in ``serve.worker_wait``, while its queue-wait
+    phase (submit -> assembly) stays under a window plus the assembly."""
+    service = 0.3
+    store = StubStore(sleep_s=service)
+    cfg = ServeConfig(r_block=2, window_s=0.05)
+
+    async def main():
+        async with KNNScheduler(store, cfg) as sched:
+            await asyncio.gather(sched.submit(tiny_rows(2)), sched.submit(tiny_rows(2)))
+        return sched.metrics
+
+    m = asyncio.run(main())
+    (first, w1), (second, w2) = _worker_waits(_fresh_recorder)
+    assert len(w1) == len(w2) == 1
+    assert w1[0]["dur_ms"] < 0.3 * service * 1e3
+    assert 0.8 * service * 1e3 <= w2[0]["dur_ms"] <= (service + 0.2) * 1e3
+    assert first["t_start"] <= w1[0]["t_start"] and w2[0]["t_end"] <= second["t_end"]
+    assert max(m.queue_wait.snapshot()) < cfg.window_s + max(m.pad.snapshot())
+
+
+def test_worker_wait_span_for_each_try(_fresh_recorder):
+    """A batch retried after a failed dispatch has a ``serve.worker_wait``
+    span for each try; a tracer that is off records none."""
+    store = StubStore(fail_first=1)
+    cfg = ServeConfig(r_block=2, window_s=0.001,
+                      retry=RetryPolicy(max_retries=2, backoff_s=0.001, jitter=0.5))
+
+    async def main(tracer=None):
+        async with KNNScheduler(store, cfg, tracer=tracer) as sched:
+            await sched.submit(tiny_rows(1))
+
+    asyncio.run(main())
+    ((_, waits),) = _worker_waits(_fresh_recorder)
+    assert len(waits) == 2 and waits[0]["t_end"] <= waits[1]["t_start"]
+    _fresh_recorder.clear()
+    asyncio.run(main(Tracer(enabled=False)))
+    assert _fresh_recorder.events("span") == []
 
 
 # ---------------------------------------------------------------------------
