@@ -2,7 +2,7 @@
 (DESIGN.md §8).
 
   KNNScheduler — async request coalescing: concurrent ``submit(rows, k,
-                 deadline)`` calls pack into full r_block-sized batches
+                 deadline)`` calls pack into batches of up to r_block rows
                  (micro-batch window / block-full / deadline-pressure
                  flush), dispatch through ONE store query per batch on one
                  worker thread, and de-interleave per-request results.

@@ -17,16 +17,19 @@ the LLM-serving continuous-batching pattern (the reference's
   latency cliff this prevents).
 
 * **Coalescing** — queued requests are packed FIFO into one
-  ``r_block``-row :class:`SparseBatch` (whole requests only; rows of one
-  request are never split across batches).  The batch is padded to
-  exactly ``r_block`` rows / a bucketed feature width, so every dispatch
-  runs at one of a few shapes; the pad rows are empty (nnz = 0) and are
-  dropped at de-interleave time.  The batch is built on the HOST (CPU
-  tensors): the store pulls R to the host at query time anyway, and the
-  event-loop thread never touches the device.  Padding never changes
-  which rows answer: rows are independent in every algorithm, and IIIB's
-  batch-global MinPruneScore only moves *work*, not answers (Theorem 1
-  masks provably-safe entries only).  The LAST BIT of a score can
+  :class:`SparseBatch` of at most ``r_block`` rows (whole requests only;
+  rows of one request are never split across batches).  The batch holds
+  exactly its requests' rows, with no pad rows; its feature width is
+  padded to a bucket with sentinel entries.  (The JAX package pads the
+  rows to exactly ``r_block``, which keeps XLA to one compiled shape;
+  eager PyTorch and cuBLAS compile nothing per shape, and a request of a
+  few rows would otherwise pay a whole ``r_block``'s products.)  The
+  batch is built on the HOST (CPU tensors): the store pulls R to the
+  host at query time anyway, and the event-loop thread never touches the
+  device.  Batching never changes which rows answer: rows are
+  independent in every algorithm, and IIIB's batch-global MinPruneScore
+  only moves *work*, not answers (Theorem 1 masks provably-safe entries
+  only).  The LAST BIT of a score can
   change: a product of another shape may take another matmul kernel (on
   the CPU and on cuBLAS alike), so a request's answer is bit for bit a
   direct query of the same assembled batch, and equal within float32
@@ -116,8 +119,10 @@ class ServeResult(tuple):
 class ServeConfig:
     """Scheduler knobs (DESIGN.md §8 documents the policy they drive).
 
-    ``r_block``     — coalesced batch geometry; defaults to the store's
-                      resolved plan.
+    ``r_block``     — the most rows a batch holds (a batch holds just its
+                      requests' rows); queued rows ≥ ``r_block`` flush a
+                      batch at once.  Defaults to the store's resolved
+                      plan.
     ``window_s``    — micro-batch window: max time the oldest request
                       waits before a partial batch flushes.
     ``queue_rows_hwm`` — admission high-water mark in queued ROWS
@@ -426,13 +431,14 @@ class KNNScheduler:
     # -- dispatch ------------------------------------------------------------
 
     def _assemble(self, reqs: Sequence[_Pending]) -> SparseBatch:
-        """Coalesce requests into ONE padded batch of exactly ``r_block``
-        rows and a bucketed feature width, as CPU tensors (empty pad rows
-        are result-inert — see module docstring)."""
+        """Coalesce requests into ONE batch of their rows and a bucketed
+        feature width, as CPU tensors (sentinel pad entries are
+        result-inert — see module docstring)."""
         f = _bucket_up(max(r.idx.shape[1] for r in reqs), self.config.feature_bucket)
-        idx = np.full((self.r_block, f), self.dim, np.int32)
-        val = np.zeros((self.r_block, f), np.float32)
-        nnz = np.zeros(self.r_block, np.int32)
+        rows = sum(len(r.nnz) for r in reqs)
+        idx = np.full((rows, f), self.dim, np.int32)
+        val = np.zeros((rows, f), np.float32)
+        nnz = np.zeros(rows, np.int32)
         off = 0
         for r in reqs:
             n, fr = r.idx.shape

@@ -11,6 +11,8 @@ expire, compact, refreeze) and the approx tier on every path, with the
 join kernels held to their plain versions on masked columns, and the
 sharded store (4 shards, exact and approx, and 2 replicas through a
 failover) against its CPU path, its merges counted on topk_merge_cuda,
+the scheduler over a BF index sending the store a batch of just its
+rows, not padded to r_block,
 and the multi-device join: the ring and the store over meshes that
 repeat the card (and, where there are two cards, over distinct ones),
 and the LM serving path: the reduced model of every family on the card
@@ -1206,6 +1208,61 @@ def test_scheduler_on_card_store(cuda):
         alone = store.query(q)
         assert_topk_close(scores, ids, alone.scores[:, :k].cpu().numpy(),
                           alone.ids[:, :k].cpu().numpy(), RTOL, ATOL)
+
+
+def test_scheduler_sends_a_served_batch_its_rows_on_card(cuda):
+    """A KNNScheduler over a BF SparseKNNIndex on the card answers a 33-row
+    request from a batch of 33 rows (not r_block's 2,048): the store sees
+    33 rows, the ``batch`` span carries ``rows`` 33, the answers are each
+    row's float64 top-k within 2e-5 of the row's best score (the
+    benchmark's limit), and TF32 stays off throughout."""
+    import asyncio
+
+    from repro_torch.obs import recorder
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.serve import KNNScheduler, ServeConfig
+
+    R = spectra_like(33, dim=2000, seed=7)
+    S = spectra_like(3000, dim=2000, seed=8)
+    index = SparseKNNIndex.build(S, JoinSpec(k=5, algorithm="bf", r_block=2048, s_block=1024),
+                                 device=cuda)
+    seen, tf32 = [], [torch.backends.cuda.matmul.allow_tf32]
+    real_query = index.query
+
+    def query(batch, **kw):
+        seen.append(batch.num_vectors)
+        tf32.append(torch.backends.cuda.matmul.allow_tf32)
+        out = real_query(batch, **kw)
+        tf32.append(torch.backends.cuda.matmul.allow_tf32)
+        return out
+
+    index.query = query
+    rec = recorder.FlightRecorder()
+
+    async def main():
+        async with KNNScheduler(index, ServeConfig(r_block=2048, window_s=0.001),
+                                tracer=Tracer(recorder=rec)) as sched:
+            return await sched.submit(R, k=5), sched.metrics
+
+    (ids, scores), m = asyncio.run(main())
+    tf32.append(torch.backends.cuda.matmul.allow_tf32)
+    assert seen == [33] and m.failed == 0
+    assert [e["attrs"]["rows"] for e in rec.events("span") if e["name"] == "batch"] == [33]
+    assert not any(tf32), tf32
+
+    def dense64(b):
+        out = torch.zeros((b.num_vectors, b.dim + 1), dtype=torch.float64)
+        out.scatter_add_(1, b.indices.cpu().long(), b.values.cpu().double())
+        return out[:, :b.dim]
+
+    full = dense64(R) @ dense64(S).T
+    ref = torch.topk(full, 5, dim=1).values.numpy()
+    scale = np.maximum(ref[:, :1], np.finfo(np.float64).tiny)
+    assert (np.abs(scores.astype(np.float64) - ref) / scale).max() <= 2e-5
+    assert ((ids >= 0) & (ids < S.num_vectors)).all()
+    own = np.take_along_axis(full.numpy(), ids.astype(np.int64), axis=1)
+    assert (np.abs(scores.astype(np.float64) - own) / scale).max() <= 2e-5
+    assert all(len(set(row)) == 5 for row in ids.tolist())
 
 
 @pytest.mark.parametrize("algorithm,use_kernel", [("bf", False), ("iiib", False),

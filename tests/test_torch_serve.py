@@ -10,6 +10,9 @@ scheduler and metrics cases (the summary's schema frozen to the JAX
 ``ServeMetrics.summary()`` keys, registry cells, reset_window, phases, span
 parenting across the dispatch thread, mutate spans), and the port's
 ``serve.worker_wait`` span: a batch's wait for the one dispatch worker.
+The port's ``_assemble`` makes a batch of just its requests' rows (the
+JAX scheduler pads the rows to exactly ``r_block``): held here over live
+rows and r_block.
 
 Then the port's store behind the scheduler: de-interleaving with ragged
 request sizes and per-request k, before and after mutations through
@@ -163,10 +166,50 @@ def test_flush_on_window_expiry():
             t0 = time.monotonic()
             await sched.submit(tiny_rows(2))
             waited = time.monotonic() - t0
-        assert store.batch_rows == [64]     # padded to the block shape
+        assert store.batch_rows == [2]      # its rows, not padded to r_block
         assert waited >= 0.015
 
     asyncio.run(main())
+
+
+ASSEMBLE_CASES = [(rows, rb) for rb in (4, 48, 64, 2048)
+                  for rows in sorted({1, 7, 8, 9, 33, 64, 65, rb - 1, rb}) if 0 < rows <= rb]
+
+
+@pytest.mark.parametrize("rows,r_block", ASSEMBLE_CASES)
+def test_assemble_sizes_a_batch_to_its_rows(rows, r_block):
+    """A batch of ``rows`` live rows, from ragged requests of ragged
+    widths, has ``rows`` rows, whatever r_block; each row is its request's
+    bytes, and the columns past a request's width are empty with sentinel
+    indices."""
+    sched = KNNScheduler(StubStore(), ServeConfig(r_block=r_block))
+    rng = np.random.default_rng(rows * 7919 + r_block)
+    sizes, left = [], rows
+    while left:
+        sizes.append(int(rng.integers(1, min(left, 20) + 1)))
+        left -= sizes[-1]
+    reqs = []
+    for n in sizes:
+        f = int(rng.integers(1, 12))
+        nnz = rng.integers(0, f + 1, size=n).astype(np.int32)
+        idx = np.full((n, f), StubStore.dim, np.int32)
+        val = np.zeros((n, f), np.float32)
+        for i, m in enumerate(nnz):
+            idx[i, :m] = np.sort(rng.choice(StubStore.dim, size=m, replace=False))
+            val[i, :m] = rng.standard_normal(m)
+        reqs.append(types.SimpleNamespace(idx=idx, val=val, nnz=nnz))
+    batch = sched._assemble(reqs)
+    assert batch.num_vectors == rows
+    assert batch.indices.shape[1] % sched.config.feature_bucket == 0
+    idx, val, nnz = batch.indices.numpy(), batch.values.numpy(), batch.nnz.numpy()
+    off = 0
+    for r in reqs:
+        n, f = r.idx.shape
+        assert idx[off:off + n, :f].tobytes() == r.idx.tobytes()
+        assert val[off:off + n, :f].tobytes() == r.val.tobytes()
+        assert nnz[off:off + n].tobytes() == r.nnz.tobytes()
+        assert (idx[off:off + n, f:] == StubStore.dim).all() and (val[off:off + n, f:] == 0).all()
+        off += n
 
 
 def test_flush_on_deadline_pressure():
@@ -189,7 +232,7 @@ def test_head_of_line_request_never_splits():
         async with KNNScheduler(store, ServeConfig(r_block=4, window_s=0.01)) as sched:
             await asyncio.gather(sched.submit(tiny_rows(3)), sched.submit(tiny_rows(3)))
         assert store.calls == 2
-        assert store.batch_rows == [4, 4]   # 3+pad | 3+pad, never 4|2
+        assert store.batch_rows == [3, 3]   # 3 | 3, never 4|2
 
     asyncio.run(main())
 
@@ -505,6 +548,33 @@ def test_deinterleave_parity_ragged_sizes_and_k(algorithm):
             await round_(2 * len(reqs))
             assert sched.metrics.query_index_builds == 0
             assert sched.metrics.completed == 3 * len(sizes)
+            assert sched.metrics.failed == 0
+
+    asyncio.run(main())
+
+
+def test_deinterleave_parity_bf_index_across_row_counts():
+    """A BF ``SparseKNNIndex`` behind the scheduler, requests of 3, 9, 30
+    and 40 rows: alone each is a batch of its own rows, and together they
+    coalesce (into batches of up to 64 rows); every answer bit for bit its
+    rows of the same assembled batch, within tolerance of its rows alone."""
+    from repro_torch.core.engine import SparseKNNIndex
+
+    S = synthetic_sparse(120, dim=DIM, nnz_mean=12, seed=5)
+    R = synthetic_sparse(82, dim=DIM, nnz_mean=10, seed=6)
+    index = SparseKNNIndex.build(S, JoinSpec(k=5, algorithm="bf", r_block=64, s_block=32),
+                                 device="cpu")
+    sizes, ks = [3, 9, 30, 40], [5, 3, 5, 1]
+    reqs = _requests(R, sizes)
+
+    async def main():
+        async with KNNScheduler(index, ServeConfig(r_block=64, window_s=0.02)) as sched:
+            seen, assemble = _recording(sched)
+            outs = [await sched.submit(q, k=k) for q, k in zip(reqs, ks)]
+            assert [b.num_vectors for _, b in seen] == [3, 9, 30, 40]
+            assert check_deinterleaved(index, assemble, seen, reqs, ks, outs) == 4
+            outs = await asyncio.gather(*[sched.submit(q, k=k) for q, k in zip(reqs, ks)])
+            assert check_deinterleaved(index, assemble, seen, reqs, ks, outs, len(reqs)) >= 2
             assert sched.metrics.failed == 0
 
     asyncio.run(main())
