@@ -73,9 +73,11 @@ from repro_torch.core.iib import iib_join_block, iib_scan_join
 from repro_torch.core.iiib import iiib_masked_block, iiib_scan_join
 from repro_torch.core.index import (
     active_tile_list,
+    bucket_rows,
     build_tile_index,
     dense_r_tiles,
     max_rows_bound,
+    tile_list_lengths,
 )
 from repro_torch.core.topk import NEG_INF, TopKState, init_topk, merge_step, min_prune_score
 from repro_torch.device import resolve_device
@@ -424,6 +426,7 @@ class _SBlock:
     list_total: int = 0                    # Σ list lengths of the block's tile index
     bound: int = 0                         # host max_rows bound (IIB/IIIB)
     tilemass: Optional[np.ndarray] = None  # (s_block, T) rank-permuted mass (IIIB)
+    lengths: Optional[np.ndarray] = None   # (T,) superset list length a tile (IIIB)
     lshkeys: Optional[np.ndarray] = None   # (s_block, n_bands) int32 band keys (approx)
 
 
@@ -508,6 +511,7 @@ class SparseKNNIndex:
         self._iib_stack: Optional[_IIBStack] = None
         self._kernel_stack: Optional[_KernelStack] = None
         self._mass_stack: Optional[torch.Tensor] = None   # (B, s_block, T) — IIIB
+        self._lengths_stack: Optional[np.ndarray] = None  # (B, T) host — IIIB
         self._lsh_stack: Optional[torch.Tensor] = None    # (B, s_block, n_bands)
         self._build_blocks(from_block=0)
         self.stats.build_wall_s += time.perf_counter() - t0
@@ -650,10 +654,7 @@ class SparseKNNIndex:
             self._rank_np = iiib_mod.s_frequency_rank(live_freq)
         self._rank_dev = torch.as_tensor(self._rank_np, device=self.device)
         for blk in self._blocks:
-            blk.bound = max_rows_bound(blk.host, self.tile, rank=self._rank_np)
-            blk.tilemass = iiib_mod.tile_mass_host(blk.host.indices.numpy(),
-                                                   blk.host.values.numpy(), self.dim,
-                                                   self._rank_np, self.tile)
+            self._superset_meta(blk)
         self._iib_stack = None
         self._mass_stack = None
         self._build_stacks(from_block=0)
@@ -692,11 +693,18 @@ class SparseKNNIndex:
         if self.algorithm == "iib" and not self.spec.use_kernel:
             blk.bound = max_rows_bound(blk.host, self.tile)
         elif self.algorithm == "iiib":
-            # superset bound and the per-(row, tile) mass the threshold mask
-            # compares against (both threshold-independent)
-            blk.bound = max_rows_bound(blk.host, self.tile, rank=self._rank_np)
-            blk.tilemass = iiib_mod.tile_mass_host(idx, val, self.dim, self._rank_np, self.tile)
+            self._superset_meta(blk)
         return blk
+
+    def _superset_meta(self, blk: _SBlock) -> None:
+        """An IIIB block's threshold-independent host metadata: its superset
+        lists' lengths (the bound M is their bucketed longest; the
+        ``iiib.scatter`` span counts its entries from them) and the
+        per-(row, tile) mass the threshold mask compares against."""
+        blk.lengths = tile_list_lengths(blk.host, self.tile, rank=self._rank_np)
+        blk.bound = bucket_rows(blk.lengths, blk.host.num_vectors)
+        blk.tilemass = iiib_mod.tile_mass_host(blk.host.indices.numpy(), blk.host.values.numpy(),
+                                               self.dim, self._rank_np, self.tile)
 
     def _build_stacks(self, from_block: int):
         """(Re)stack blocks ``from_block`` on; the prefix stays on the device."""
@@ -711,6 +719,7 @@ class SparseKNNIndex:
         else:   # iiib: superset tile indexes + tilemass, stacked like IIB
             self._iib_stack = self._stack_iib(from_block, rank=self._rank_dev)
             self._mass_stack = self._stack_rows(self._mass_stack, from_block, "tilemass")
+            self._lengths_stack = np.stack([blk.lengths for blk in self._blocks])
         if self._lsh is not None and not (self.spec.use_kernel and self.algorithm == "iib"):
             self._lsh_stack = self._stack_rows(self._lsh_stack, from_block, "lshkeys")
 
@@ -1176,7 +1185,8 @@ class SparseKNNIndex:
             s_valid = s_valid & cand
         state, _, thr_trace, kept = iiib_scan_join(
             state, thr0, r_tiles, mwt, tiles, st.rows, st.vals, st.counts, self._mass_stack,
-            st.ids, s_valid, rv, tile=self.tile, num_s=self.s_block)
+            st.ids, s_valid, rv, tile=self.tile, num_s=self.s_block,
+            s_lengths=self._lengths_stack)
         stats.device_dispatches += 1
         stats.blocks += b
         stats.tiles_scored += int(tiles.shape[0]) * b
@@ -1259,7 +1269,8 @@ class SparseKNNIndex:
             stats.host_syncs += 1
             state, _, kept = iiib_masked_block(
                 state, thr, r_tiles, index, torch.as_tensor(blk.tilemass, device=self.device),
-                mwt, tiles, blk.start, torch.as_tensor(s_valid[bi], device=self.device), rv)
+                mwt, tiles, blk.start, torch.as_tensor(s_valid[bi], device=self.device), rv,
+                blk.lengths)
             stats.device_dispatches += 2
             stats.blocks += 1
             stats.tiles_scored += int(tiles.shape[0])

@@ -25,7 +25,7 @@ dense prefix plus the indexed suffix.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -104,6 +104,7 @@ def iiib_masked_block(
     s_offset,                   # first-row global id, or (|Bs|,) per-row global ids
     s_valid: torch.Tensor,      # (|Bs|,) bool — padding AND warm-start-sampled rows out
     r_valid: torch.Tensor,      # (|Br|,) bool — padded R rows out of the min
+    lengths: Optional[np.ndarray] = None,  # (T,) host list lengths, for the scatter's span
 ) -> Tuple[TopKState, torch.Tensor, torch.Tensor]:
     """One (B_r, B_s) IIIB step against the superset index; returns
     (state, new threshold, kept-entry count), all on the device.
@@ -114,7 +115,7 @@ def iiib_masked_block(
     cum = torch.cumsum(contrib, dim=1)                  # inclusive prefix bound
     keep = cum > thr                                    # entry (s, t) stays indexed
     pref_ub = torch.where(keep, 0.0, contrib).sum(dim=1)
-    a_kept, a_full = masked_tile_scores(r_tiles, index, active_tiles, keep)
+    a_kept, a_full = masked_tile_scores(r_tiles, index, active_tiles, keep, lengths)
     prune = prune_scores(state)
     # Theorem 1 (a shared kept feature) and the A + prefUB > pruneScore
     # bound; the offered value is the EXACT dot
@@ -140,6 +141,7 @@ def iiib_scan_join(
     r_valid: torch.Tensor,      # (|Br|,) bool
     tile: int,
     num_s: int,
+    s_lengths: Optional[np.ndarray] = None,  # (B, T) host list lengths, for the spans
 ):
     """IIIB over ALL stacked S blocks in S order, carrying (TopKState,
     MinPruneScore) on the device: no host sync.
@@ -153,7 +155,8 @@ def iiib_scan_join(
         index = TileIndex(rows=s_rows[b], vals=s_vals[b], counts=s_counts[b], pref_ub=zeros_f,
                           crossing=zeros_i, tile=tile, num_s=num_s)
         state, thr, kept = iiib_masked_block(state, thr, r_tiles, index, s_mass[b], maxw_tile,
-                                             active_tiles, s_ids[b], s_valid[b], r_valid)
+                                             active_tiles, s_ids[b], s_valid[b], r_valid,
+                                             None if s_lengths is None else s_lengths[b])
         thr_trace.append(thr)
         kept_trace.append(kept)
     return state, thr, torch.stack(thr_trace), torch.stack(kept_trace)

@@ -189,16 +189,16 @@ def build_tile_index(
                      tile=tile, num_s=n)
 
 
-def max_rows_bound(
+def tile_list_lengths(
     s_block: SparseBatch,
     tile: int = DEFAULT_TILE,
     rank: Optional[np.ndarray] = None,
     maxw: Optional[np.ndarray] = None,
     min_prune_score: float = -np.inf,
-    bucket: int = 128,
-) -> int:
-    """Host-side concrete bound on the longest tile list (numpy mirror of the
-    builder's occupancy), bucketed."""
+) -> np.ndarray:
+    """(T,) host list length of each tile: a numpy mirror of the
+    ``counts`` that ``build_tile_index`` gives, without the sentinel
+    tile."""
     idx = s_block.indices.cpu().numpy()
     val = s_block.values.cpu().numpy()
     d = s_block.dim
@@ -225,9 +225,27 @@ def max_rows_bound(
     indexed = sval & (f_tid >= crossing[:, None])
     occ = np.zeros((idx.shape[0], t_total + 1), np.int64)
     np.add.at(occ, (np.arange(idx.shape[0])[:, None], np.where(indexed, f_tid, t_total)), 1)
-    longest = int((occ[:, :t_total] > 0).sum(axis=0).max(initial=0))
-    longest = max(longest, 1)
-    return min(int(-(-longest // bucket) * bucket), idx.shape[0])
+    return (occ[:, :t_total] > 0).sum(axis=0)
+
+
+def bucket_rows(lengths: np.ndarray, num_s: int, bucket: int = 128) -> int:
+    """The longest of ``lengths`` (at least 1) rounded up to a ``bucket``
+    multiple, at most ``num_s``: a block's common list width M."""
+    longest = max(int(lengths.max(initial=0)), 1)
+    return min(int(-(-longest // bucket) * bucket), num_s)
+
+
+def max_rows_bound(
+    s_block: SparseBatch,
+    tile: int = DEFAULT_TILE,
+    rank: Optional[np.ndarray] = None,
+    maxw: Optional[np.ndarray] = None,
+    min_prune_score: float = -np.inf,
+    bucket: int = 128,
+) -> int:
+    """Host-side concrete bound on the longest tile list, bucketed."""
+    return bucket_rows(tile_list_lengths(s_block, tile, rank, maxw, min_prune_score),
+                       s_block.num_vectors, bucket)
 
 
 # ---------------------------------------------------------------------------
@@ -269,6 +287,7 @@ def masked_tile_scores(
     index: TileIndex,
     active_tiles,                  # (A,) host int tile ids; padded with n_tiles (sentinel)
     keep: torch.Tensor,            # (|Bs|, T) bool — entry (s, t) survives the threshold
+    lengths: Optional[np.ndarray] = None,  # (T,) host list lengths (``tile_list_lengths``)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """IIIB's threshold refinement as a mask over a superset index.
 
@@ -277,6 +296,11 @@ def masked_tile_scores(
     which the candidate test reads), and ``full``, the sum over all
     entries: the superset holds every feature, so this is the exact dot
     product that enters the top-k.
+
+    The ``iiib.scatter`` span around the tile loop counts its ``tiles``,
+    the list ``slots`` they multiply (tiles × M) and, given the host's
+    ``lengths``, the real list ``entries`` among them; with tracing off
+    nothing is counted.
     """
     n_r = r_dense_tiles.shape[1]
     t_total = r_dense_tiles.shape[0]
@@ -291,6 +315,10 @@ def masked_tile_scores(
     tt = to_device(torch.as_tensor(tiles), dev)     # no host sync: the store's shards overlap
     keep_lists = kp[index.rows[tt].long(), tt[:, None]]          # (A, M)
     span = obs_trace.start_span("iiib.scatter", tiles=len(tiles))  # the host's tile steps
+    if span is not None:
+        span.attrs["slots"] = len(tiles) * index.max_rows
+        if lengths is not None:
+            span.attrs["entries"] = int(lengths[tiles].sum())
     for j, t in enumerate(tiles):
         rows_t = index.rows[t]
         p = r_dense_tiles[t] @ index.vals[t].T                   # (|Br|, M)
